@@ -1,15 +1,22 @@
 """aom_av1_lavish_torch — the PyTorch/CUDA port of aom_av1_lavish_tpu.
 
-The device layer of the JAX package (batched transforms, quantizer,
-motion search and compensation, wavefront intra, deblock, the P-frame
-chain) re-implemented on torch tensors, with its four Pallas kernels
-re-written by hand for NVIDIA Hopper (ops/csrc/*.cu).  The host layers —
-bitstream, headers, entropy coder, native tile walkers, decoder and the
-host encoder classes — are imported from aom_av1_lavish_tpu unchanged.
+A package that stands on its own: it imports torch, never jax, and
+nothing of aom_av1_lavish_tpu.  The device layer of the JAX package
+(batched transforms, quantizer, motion search and compensation, wavefront
+intra, deblock, the P-frame chain) is re-implemented on torch tensors in
+ops/, with the Pallas kernels re-written by hand for NVIDIA Hopper
+(ops/csrc/*.cu).  The host layers (bitstream, common, runtime, dsp,
+models, encoder, decoder, utils) are the port's own copies of the JAX
+package's modules of the same names, with the seams that reached a JAX
+module calling ops/ instead, or raising NotImplementedError for what is
+not ported yet.
 
-Functions take tensors and work on the tensors' device; nothing here
-picks a device globally.  On a CPU tensor each kernel wrapper runs its
-plain PyTorch version; on a CUDA tensor it launches the kernel or raises.
+Entry points (GopEncoder, encode_gop_ivf, TorchAllIntraEncoder,
+WavefrontEncoder, DeviceChainEncoder) run on the card unless the caller
+passes a device; without a CUDA device they raise.  Functions below them
+take tensors and work on the tensors' device.  On a CPU tensor each kernel
+wrapper runs its plain PyTorch version; on a CUDA tensor it launches the
+kernel or raises.
 
 Every integer result must be bit-identical to the reference, so TF32 is
 off for matmuls and cuDNN convolutions alike.
@@ -20,4 +27,17 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: `device` when the caller names
+    one, else the card.  Without a CUDA device that is an error, never a
+    quiet run on the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available (torch.cuda.is_available() is "
+            "False); pass device=\"cpu\" to run on the CPU")
+    return torch.device("cuda")

@@ -1,8 +1,9 @@
 """Build the hand-written CUDA kernels (ops/csrc/*.cu) and load them.
 
-nvcc compiles every source in csrc/ into one shared library with a plain
-C interface for sm_90a (Hopper), which ctypes loads.  The sources include
-no PyTorch header, so a build takes seconds.  The library lands in
+nvcc compiles each source in csrc/ to an object for sm_90a (Hopper), all
+sources at the same time, and links the objects into one shared library
+with a plain C interface, which ctypes loads.  The sources include no
+PyTorch header, so a build takes seconds.  The library lands in
 <repo>/build/torch_kernels/, named by a hash of the sources and flags, so
 an edited kernel is rebuilt and an unchanged one is reused.  Nothing is
 built when this module is imported: the first kernel launch calls load().
@@ -21,8 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def sources() -> list[Path]:
@@ -57,15 +57,35 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed (%d):\n%s" % (
-            proc.returncode, proc.stderr[-4000:]))
+    nvcc = _nvcc()
+    tag = f"{so.stem}.{os.getpid()}"
+    jobs = []
+    for src in sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", "-o", str(obj),
+               str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    report, failed = [], []
+    for cmd, obj, proc in jobs:
+        out, _ = proc.communicate()
+        report.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(out[-4000:])
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    if not failed:
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        report.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(proc.stderr[-4000:])
+    so.with_suffix(".log").write_text("\n".join(report))
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, so)
     return so
 

@@ -15,7 +15,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from aom_av1_lavish_tpu.common.loopfilter import sharpness_limits
+from ..common.loopfilter import sharpness_limits
 
 
 @lru_cache(maxsize=None)

@@ -5,9 +5,10 @@ Port of aom_av1_lavish_tpu/ops/inter_tpu.py (the parts the device GOP
 path runs: _p_frame_core, _eval_merge_level, _p_chain_fn and
 DeviceChainEncoder).  Every 16x16 block of a P frame is searched, motion
 compensated, transform coded and reconstructed in one batched pass: a
-two-scale exhaustive full-pel search (kernel K2 over windows cut from the
-padded reference), half/quarter/eighth-pel refinement through the 8-tap
-interpolator (K1 + K3), an MV consensus snap, a frame-level interp-filter
+two-scale exhaustive full-pel search (kernel K2, which cuts its windows
+from the padded reference plane itself), half/quarter/eighth-pel refinement
+through the 8-tap interpolator (K3, which reads its regions from the
+plane), an MV consensus snap, a frame-level interp-filter
 pick, residual coding with RD tail dropout (K4), an RD skip decision and
 a bottom-up partition merge over {16, 32, 64}.  The chain runs the
 reference's lax.scan as a loop; each frame's deblocked recon stays on the
@@ -27,14 +28,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from aom_av1_lavish_tpu.bitstream import constants as c
-from aom_av1_lavish_tpu.bitstream import tables
-from aom_av1_lavish_tpu.common import coeffs as CF
-from aom_av1_lavish_tpu.common import interpred as IP
-from aom_av1_lavish_tpu.common import quant as Q
+from .. import resolve_device
+from ..bitstream import constants as c
+from ..bitstream import tables
+from ..common import coeffs as CF
+from ..common import interpred as IP
+from ..common import quant as Q
 
 from .deblock import deblock_leafmask
-from .kernels import convolve_8tap, gather_windows, ssd_surface
+from .kernels import (convolve_8tap_plane, gather_windows,
+                      ssd_surface_plane, stride_windows)
 from .txfm import fwd_txfm2d_batched, inv_txfm2d_add_batched
 from .wavefront import est_bits, log2_f32, pq_array, quantize
 
@@ -96,10 +99,10 @@ def _mc_block(refp, x0, y0, bw, bh, mv_r_q4, mv_c_q4, filt):
     (x0, y0), clamped q4 MVs; refp is PADR-padded -> (B, bh, bw) uint8."""
     pos_r = (y0 << 4) + mv_r_q4
     pos_c = (x0 << 4) + mv_c_q4
-    region = gather_windows(refp, (PADR + (pos_r >> 4) - 3).to(torch.int32),
-                            (PADR + (pos_c >> 4) - 3).to(torch.int32),
-                            bh + 7, bw + 7).to(torch.int32)
-    return convolve_8tap(region, filt[pos_c & 15], filt[pos_r & 15], bh, bw)
+    return convolve_8tap_plane(
+        refp, (PADR + (pos_r >> 4) - 3).to(torch.int32),
+        (PADR + (pos_c >> 4) - 3).to(torch.int32), filt[pos_c & 15],
+        filt[pos_r & 15], bh, bw)
 
 
 def _mc_refs(refs, x0, y0, n, cr, cc, ref, filt):
@@ -125,16 +128,6 @@ def _clamp_mv(mv_r, mv_c, bw, bh, ss_x, ss_y, x0l, y0l, fw, fh_, bw4l,
     lo_r = (-y0l) * 8 * sy - spel_left_r
     hi_r = (fh_ - bh4l - y0l) * 8 * sy + spel_right_r
     return ((mv_r * sy).clamp(lo_r, hi_r), (mv_c * sx).clamp(lo_c, hi_c))
-
-
-def _stride_windows(refp, oy, ox, nby, nbx, bsz, wsz):
-    """(nby*nbx, wsz, wsz) windows at stride bsz over a padded plane,
-    window origin = block origin + (oy, ox)."""
-    span_r = (nby - 1) * bsz + wsz
-    span_c = (nbx - 1) * bsz + wsz
-    win = refp[oy:oy + span_r, ox:ox + span_c].unfold(0, wsz, bsz) \
-        .unfold(1, wsz, bsz)                       # (nby, nbx, wsz, wsz)
-    return win.reshape(nby * nbx, wsz, wsz)
 
 
 def _tiles(p, n, n1, n2):
@@ -180,28 +173,32 @@ def _pick(cands):
             for k in range(len(cands[0]))]
 
 
-def _fullpel_search(sy_blk, refp_y, refp_y2, y0, x0, nby, nbx, bsz=16):
+def _half_res(plane):
+    """2x2 sums of a plane -> int32 plane of half the size."""
+    h2, w2 = plane.shape[0] // 2, plane.shape[1] // 2
+    return plane[:h2 * 2, :w2 * 2].to(torch.int32) \
+        .reshape(h2, 2, w2, 2).sum((1, 3)).to(torch.int32)
+
+
+def _fullpel_search(src_y, sy_blk, refp_y, refp_y2, y0, x0, nby, nbx,
+                    bsz=16):
     """Two-scale exhaustive full-pel search for one reference ->
-    (best_dy, best_dx, cost) in full-pel units, range +-32."""
+    (best_dy, best_dx, cost) in full-pel units, range +-32.  src_y is the
+    uint8 source plane and sy_blk its (B, bsz, bsz) int32 tiles."""
     r = FULLPEL_RADIUS
     dev = sy_blk.device
     # full-res surface: +-16
-    win = _stride_windows(refp_y, PADR - r, PADR - r, nby, nbx, bsz,
-                          2 * r + bsz).to(torch.int32)
-    ssd0 = ssd_surface(sy_blk, win, bsz, r)
+    ssd0 = ssd_surface_plane(src_y, refp_y, nby, nbx, bsz, r, PADR - r,
+                             PADR - r)
     ar = torch.arange(2 * r + 1, device=dev) - r
     iy0, ix0, c0 = _argmin2d(ssd0 + _mv_bias(ar[None, :, None],
                                              ar[None, None, :]))
     dy0, dx0 = iy0 - r, ix0 - r
     # half-res surface: +-16 at half res == +-32 full-res (the half-res
     # plane carries PADR//2 of padding)
-    B = sy_blk.shape[0]
-    src_h = sy_blk.reshape(B, bsz // 2, 2, bsz // 2, 2).sum((2, 4)) \
-        .to(torch.int32)
-    win_h = _stride_windows(refp_y2, PADR // 2 - r, PADR // 2 - r, nby,
-                            nbx, bsz // 2, 2 * r + bsz // 2) \
-        .to(torch.int32)
-    iy1, ix1, _ = _argmin2d(ssd_surface(src_h, win_h, bsz // 2, r))
+    iy1, ix1, _ = _argmin2d(ssd_surface_plane(
+        _half_res(src_y), refp_y2, nby, nbx, bsz // 2, r, PADR // 2 - r,
+        PADR // 2 - r))
     dy1, dx1 = (iy1 - r) * 2, (ix1 - r) * 2
     # refine the half-res candidate at full res (3x3)
     syf = sy_blk.to(torch.float32)
@@ -413,8 +410,8 @@ def p_frame(src_y, src_u, src_v, refs_y, refs_u, refs_v, refs_y2, pq_y,
     # --- per-ref search ---
     per_ref = []
     for ri in range(n_refs):
-        fdy, fdx, _ = _fullpel_search(sy_blk, refs_y[ri], refs_y2[ri], y0,
-                                      x0, nby, nbx)
+        fdy, fdx, _ = _fullpel_search(src_y, sy_blk, refs_y[ri],
+                                      refs_y2[ri], y0, x0, nby, nbx)
         mv_r, mv_c, pred, _ = _subpel_refine(sy_blk, refs_y[ri], y0, x0,
                                              16, fdy, fdx, W, H, filt8, hp)
         per_ref.append((_ssd_sum(pred, sy_blk), mv_r, mv_c, pred))
@@ -465,7 +462,7 @@ def p_frame(src_y, src_u, src_v, refs_y, refs_u, refs_v, refs_y2, pq_y,
         rr = torch.full((B,), ri, dtype=best_ref.dtype, device=dev)
         pm = mc16(mr, mc, rr)
         snap.append((_ssd_sum(pm, syf32), mr, mc, rr, pm))
-    pz = _stride_windows(refs_y[0], PADR, PADR, nby, nbx, 16, 16)
+    pz = stride_windows(refs_y[0], PADR, PADR, nby, nbx, 16, 16)
     zero = torch.zeros(B, dtype=torch.int64, device=dev)
     snap.append((_ssd_sum(pz, syf32), zero, zero, zero, pz))
     best_c, snap_r, snap_c, snap_f, snap_p = _pick(snap)
@@ -576,11 +573,7 @@ def pad_ref(y, u, v):
     """Reference prep: PADR edge padding + the half-res luma sums (the
     two-scale search pyramid)."""
     py, pu, pv = (_edge_pad(p, PADR) for p in (y, u, v))
-    h2 = (py.shape[0] // 2) * 2
-    w2 = (py.shape[1] // 2) * 2
-    y2 = py[:h2, :w2].to(torch.int32).reshape(h2 // 2, 2, w2 // 2, 2) \
-        .sum((1, 3)).to(torch.int32)
-    return py, pu, pv, y2
+    return py, pu, pv, _half_res(py)
 
 
 def _leaf_ids(lvl16):
@@ -617,8 +610,8 @@ class DeviceChainEncoder:
     device (LAST = the previous frame's deblocked recon, plus an
     optional fixed ARF), one host copy of the results per frame."""
 
-    def __init__(self, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
 
     def encode_chain(self, src_frames, qindexes, last_planes,
                      arf_planes=None, recon: str = "last",

@@ -9,6 +9,13 @@ C++ kernel in ops/csrc/, built by ops/build.py and called through ctypes:
   K3 convolve_8tap  — csrc/convolve_8tap.cu   (_conv8_kernel)
   K4 quantize_b_vec — csrc/quantize_b.cu      (_quant_kernel)
 
+K2 and K3 have two entries each.  ssd_surface and convolve_8tap take the
+windows and regions the Pallas kernels took; ssd_surface_plane and
+convolve_8tap_plane take the padded reference plane and cut the windows
+and regions themselves, inside the kernel, which is what the motion search
+and motion compensation call (the windows never exist in device memory).
+Both entries of a kernel count under its one name.
+
 Beside each wrapper sits its plain PyTorch version (integer math, no
 convolution library), which takes the same tensors on any device.  A
 wrapper runs the plain version only when its tensors lie on the CPU; on
@@ -32,7 +39,11 @@ _SIGNATURES = {
     "avl_gather_windows": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
                            _INT, _INT, _VP],
     "avl_ssd_surface": [_VP, _VP, _VP, _INT, _INT, _INT, _VP],
+    "avl_ssd_surface_plane": [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
+                              _INT, _INT, _INT, _INT, _VP],
     "avl_convolve_8tap": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
+    "avl_convolve_8tap_plane": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT,
+                                _INT, _INT, _VP],
     "avl_quantize_b": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                        ctypes.c_longlong, _INT, _INT, _VP],
 }
@@ -166,6 +177,62 @@ def ssd_surface(src_blk, win, bsz: int, radius: int):
     return out
 
 
+def stride_windows(plane, oy: int, ox: int, nby: int, nbx: int, bsz: int,
+                    wsz: int):
+    """(nby*nbx, wsz, wsz) windows at stride bsz over a plane (a view
+    until reshaped), window origin = block origin + (oy, ox)."""
+    span_r = (nby - 1) * bsz + wsz
+    span_c = (nbx - 1) * bsz + wsz
+    win = plane[oy:oy + span_r, ox:ox + span_c].unfold(0, wsz, bsz) \
+        .unfold(1, wsz, bsz)                       # (nby, nbx, wsz, wsz)
+    return win.reshape(nby * nbx, wsz, wsz)
+
+
+def ssd_surface_plane_plain(src, ref, nby: int, nbx: int, bsz: int,
+                            radius: int, oy: int, ox: int):
+    """ssd_surface_plain over the block grid of a source plane: block
+    (by, bx) is src[by*bsz:, bx*bsz:] and its window starts at
+    (oy + by*bsz, ox + bx*bsz) of ref -> (nby*nbx, 2r+1, 2r+1) float32."""
+    win = stride_windows(ref, oy, ox, nby, nbx, bsz, 2 * radius + bsz)
+    blk = stride_windows(src, 0, 0, nby, nbx, bsz, bsz)
+    return ssd_surface_plain(blk, win, bsz, radius)
+
+
+def ssd_surface_plane(src, ref, nby: int, nbx: int, bsz: int, radius: int,
+                      oy: int, ox: int):
+    """K2 from planes: uint8 or int32 source plane (>= nby*bsz, >= nbx*bsz)
+    and reference plane of the same dtype, which must hold every window:
+    rows oy .. oy + (nby-1)*bsz + 2r+bsz, columns likewise from ox.
+    bsz is 8 or 16 on the card."""
+    name = "ssd_surface"
+    W = 2 * radius + bsz
+    _require(src.dim() == 2 and ref.dim() == 2 and src.dtype == ref.dtype
+             and src.dtype in (torch.uint8, torch.int32), name,
+             "src and ref must be 2-D planes, both uint8 or both int32")
+    _require(nby > 0 and nbx > 0 and radius >= 0 and oy >= 0 and ox >= 0,
+             name, "nby, nbx must be positive; radius, oy, ox non-negative")
+    _require(src.shape[0] >= nby * bsz and src.shape[1] >= nbx * bsz, name,
+             f"src {tuple(src.shape)} does not hold {nby}x{nbx} blocks of "
+             f"{bsz}")
+    _require(ref.shape[0] >= oy + (nby - 1) * bsz + W
+             and ref.shape[1] >= ox + (nbx - 1) * bsz + W, name,
+             f"ref {tuple(ref.shape)} does not hold every {W}x{W} window "
+             f"from ({oy}, {ox})")
+    if _on_cpu(name, src, ref):
+        return ssd_surface_plane_plain(src, ref, nby, nbx, bsz, radius, oy,
+                                       ox)
+    _require(bsz in (8, 16), name, "the plane form takes bsz 8 or 16")
+    src = src.contiguous()
+    ref = ref.contiguous()
+    S = 2 * radius + 1
+    out = torch.empty((nby * nbx, S, S), dtype=torch.float32,
+                      device=ref.device)
+    _launch(name, "avl_ssd_surface_plane", out.data_ptr(), src.data_ptr(),
+            ref.data_ptr(), src.shape[1], ref.shape[1], nby, nbx, bsz,
+            radius, oy, ox, src.element_size())
+    return out
+
+
 # ---------------------------------------------------------------------------
 # K3: 8-tap separable sub-pel convolve
 
@@ -208,6 +275,57 @@ def convolve_8tap(region, kx, ky, bh: int, bw: int):
     if B:
         _launch(name, "avl_convolve_8tap", out.data_ptr(),
                 region.data_ptr(), kx.data_ptr(), ky.data_ptr(), B, bh, bw)
+    return out
+
+
+def convolve_8tap_plane_plain(ref, base_r, base_c, kx, ky, bh: int,
+                              bw: int):
+    """convolve_8tap_plain on the (bh+7, bw+7) regions of a uint8 plane
+    at origins (base_r, base_c), indices clamped to the plane."""
+    region = gather_windows_plain(ref, base_r, base_c, bh + 7, bw + 7)
+    return convolve_8tap_plain(region, kx, ky, bh, bw)
+
+
+def _aligned16(t):
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def convolve_8tap_plane(ref, base_r, base_c, kx, ky, bh: int, bw: int):
+    """K3 from a plane: uint8 plane (H, W), int32 region origins (B,) and
+    int32 taps (B, 8) -> (B, bh, bw) uint8, the prediction of each block
+    from the (bh+7, bw+7) region at its origin (clamped to the plane).
+    On the card blocks are square, 8, 16, 32 or 64, and the taps of a
+    block must have absolute values that sum to at most 963 (AV1's
+    filter rows sum to at most 240), which keeps the 16-bit horizontal
+    intermediate exact."""
+    name = "convolve_8tap"
+    B = base_r.shape[0]
+    _require(ref.dim() == 2 and ref.dtype == torch.uint8, name,
+             "ref must be a 2-D uint8 plane")
+    _require(base_r.dim() == 1 and base_r.shape == base_c.shape
+             and base_r.dtype == torch.int32
+             and base_c.dtype == torch.int32, name,
+             "base_r/base_c must be int32 (B,) tensors")
+    _require(kx.dtype == torch.int32 and ky.dtype == torch.int32
+             and tuple(kx.shape) == (B, 8) and tuple(ky.shape) == (B, 8),
+             name, "kx and ky must be int32 (B, 8) tensors")
+    if _on_cpu(name, ref, base_r, base_c, kx, ky):
+        return convolve_8tap_plane_plain(ref, base_r, base_c, kx, ky, bh,
+                                         bw)
+    _require(bh == bw and bh in (8, 16, 32, 64), name,
+             "the plane form takes square blocks of 8, 16, 32 or 64")
+    ref = ref.contiguous()
+    base_r = base_r.contiguous()
+    base_c = base_c.contiguous()
+    kx = _aligned16(kx)
+    ky = _aligned16(ky)
+    out = torch.empty((B, bh, bw), dtype=torch.uint8, device=ref.device)
+    if B:
+        _launch(name, "avl_convolve_8tap_plane", out.data_ptr(),
+                ref.data_ptr(), base_r.data_ptr(), base_c.data_ptr(),
+                kx.data_ptr(), ky.data_ptr(), B, ref.shape[0], ref.shape[1],
+                bh)
     return out
 
 

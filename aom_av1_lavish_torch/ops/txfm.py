@@ -15,9 +15,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from aom_av1_lavish_tpu.bitstream import constants as c
-from aom_av1_lavish_tpu.common import txfm1d as T1
-from aom_av1_lavish_tpu.common import txfm2d as T2
+from ..bitstream import constants as c
+from ..common import txfm1d as T1
+from ..common import txfm2d as T2
 
 K_COPY, K_ADDSUB, K_BTF = T1.K_COPY, T1.K_ADDSUB, T1.K_BTF
 

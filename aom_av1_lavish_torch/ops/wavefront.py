@@ -15,10 +15,11 @@ import math
 import numpy as np
 import torch
 
-from aom_av1_lavish_tpu.bitstream import constants as c
-from aom_av1_lavish_tpu.bitstream import tables
-from aom_av1_lavish_tpu.common import quant as Q
-from aom_av1_lavish_tpu.common.intra import SMOOTH_WEIGHTS
+from .. import resolve_device
+from ..bitstream import constants as c
+from ..bitstream import tables
+from ..common import quant as Q
+from ..common.intra import SMOOTH_WEIGHTS
 
 from . import txfm as TX
 from .kernels import quantize_b_vec
@@ -189,10 +190,10 @@ class WavefrontEncoder:
 
     B = 16
 
-    def __init__(self, qindex: int, lam: float, device="cpu"):
+    def __init__(self, qindex: int, lam: float, device=None):
         self.qindex = qindex
         self.lam = lam
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.pq = [Q.build_plane_quant(qindex, 0, 0) for _ in range(3)]
 
     def _wave_geometry(self, H, W):

@@ -1,22 +1,32 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (aom_av1_lavish_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--warm N] [--profile]
 
 1. Builds the hand-written CUDA kernels (ops/csrc/*.cu) into
-   build/torch_kernels/ and holds each kernel against its plain PyTorch
-   version on the card at the shapes of the 1080p slice, requiring exact
-   equality, and times both with CUDA events.
-2. Runs the slice: the 8-frame 1920x1088 inter-GOP encode of bench.py's
-   frames (KEY + a GF group of 7: hidden ARF + 6 chained P frames) with
-   qindex 120, cpu_used 8, CDEF off, with the launch counters reset just
-   before it; every kernel must have launched during it.
-3. Encodes the same configuration at 352x288 and decodes the stream with
-   the repo's decoder; the decoder's reference slots must equal the
+   build/torch_kernels/ and holds each kernel entry against its plain
+   PyTorch version on the card at the shapes of the 1080p slice,
+   requiring exact equality, and times both with CUDA events (and the
+   kernel once more from a CUDA graph, without the host).  Each kernel's
+   bound (the least time the card could take: its bytes at the
+   memory rate or its operations at the peak rate, whichever is larger)
+   is computed from the case's tensors.
+2. Times the call paths that the plane-form entries of K2 and K3 replaced
+   (cut windows -> int32 -> ssd_surface; gather -> int32 -> convolve_8tap)
+   beside the plane forms, in turns, on the same inputs.
+3. Runs the slice: the 8-frame 1920x1088 inter-GOP encode of the repo's
+   benchmark clip (KEY + a GF group of 7: hidden ARF + 6 chained P
+   frames) with qindex 120, cpu_used 8, CDEF off, with the launch counters
+   reset just before it; every kernel must have launched during it.
+4. Encodes the same configuration at 352x288 and decodes the stream with
+   the port's decoder; the decoder's reference slots must equal the
    encoder's recon slots byte for byte.
 
-JAX is blocked from import: the port uses the reference package only for
-its host layers (bitstream, headers, native runtime, decoder).  Prints the
+With --warm N the slice is run N more times and the stage medians are
+printed; with --profile one more slice runs under torch.profiler and the
+device time of each hand kernel and the device-busy share are printed.
+
+Only the port is imported: jax and the JAX package are blocked.  Prints the
 card's name and power limit, one JSON line with each kernel's record, and
 as its last line {"ok": true, "device": {...}}.  Exits non-zero, before
 that line, on any failure, and when no CUDA device is available.
@@ -24,14 +34,17 @@ that line, on any failure, and when no CUDA device is available.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 W, H, N_FRAMES, QINDEX = 1920, 1088, 8, 120
+PADR = 64
 KW = dict(qindex=QINDEX, gf_length=8, use_tpu=True, enable_cdef=False,
           cpu_used=8)
 PK = "aom_av1_lavish_tpu/ops/pallas_kernels.py"
@@ -43,6 +56,19 @@ KERNELS = {
     "convolve_8tap": (f"{CSRC}/convolve_8tap.cu", f"{PK}:419"),
     "quantize_b_vec": (f"{CSRC}/quantize_b.cu", f"{PK}:343"),
 }
+#: the device function(s) of each kernel, as a profiler names them
+DEVICE_FUNCS = {
+    "gather_windows": ("gather_windows_kernel",),
+    "ssd_surface": ("ssd_plane_kernel", "ssd_surface_kernel"),
+    "convolve_8tap": ("conv8_plane_kernel", "convolve_8tap_kernel"),
+    "quantize_b_vec": ("quantize_b_kernel",),
+}
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense): device
+# memory rate, and operations per second by operand type.  int32 is not in
+# the data sheet; it runs on the CUDA cores, so it gets their float32 rate,
+# which it cannot exceed.
+MEM_BYTES_PER_S = 3.35e12
+OPS_PER_S = {"uint8": 1979e12, "int32": 67e12}
 
 
 def log(msg: str) -> None:
@@ -72,14 +98,41 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Mean milliseconds per call with the host taken out: `reps` calls are
+    captured into one CUDA graph and the graph's replay is timed.  For a
+    kernel that runs for less time than its wrapper takes to enqueue it,
+    this is the kernel's own time where cuda_ms gives the host's."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
 def _cases(dev):
-    """(kernel name, label, args) at the slice's shapes, made from a
-    seed; the wrapper and its plain version take the same args."""
+    """(kernel name, wrapper name, label, args, operations) at the
+    slice's shapes, made from a seed; the wrapper `K.<wrapper name>` and
+    its plain version `K.<wrapper name>_plain` take the same args.
+    `operations` is (count, operand type) of the integer operations the
+    function does on these inputs.  The first case of a kernel is its
+    headline: the entry and shape the slice calls most."""
     import numpy as np
     import torch
 
-    from aom_av1_lavish_tpu.common import interpred as IP
-    from aom_av1_lavish_tpu.common import quant as Q
+    from aom_av1_lavish_torch.common import interpred as IP
+    from aom_av1_lavish_torch.common import quant as Q
     from aom_av1_lavish_torch.ops.wavefront import pq_array
 
     rng = np.random.default_rng(0)
@@ -88,72 +141,168 @@ def _cases(dev):
         return torch.as_tensor(np.ascontiguousarray(a), device=dev)
 
     cases = []
-    # K2: full-res (16, r16) and half-res (8, r16) at B=8160, plus (16, r8)
+    nby, nbx = H // 16, W // 16
+    B = nby * nbx
+
+    def ssd_ops(n_blk, bsz, r, kind):
+        # subtract, multiply, add per pixel pair
+        return 3 * n_blk * (2 * r + 1) ** 2 * bsz * bsz, kind
+
+    # K2 from planes: the full-res (uint8, bsz 16) and half-res (int32 2x2
+    # sums, bsz 8) surfaces of a PADR-padded 1080p reference, r 16,
+    # ordinary and bright inputs; then grids whose width is no multiple
+    # of the kernel's block group and whose addresses are not 16-byte
+    # aligned, and the other dtype at each block size
+    for dtype, bsz, lo, hi in ((np.uint8, 16, 0, 256),
+                               (np.uint8, 16, 240, 256),
+                               (np.int32, 8, 0, 1021),
+                               (np.int32, 8, 960, 1021)):
+        sc = 16 // bsz
+        src = t(rng.integers(lo, hi, (H // sc, W // sc)).astype(dtype))
+        ref = t(rng.integers(lo, hi, ((H + 2 * PADR) // sc,
+                                      (W + 2 * PADR) // sc)).astype(dtype))
+        o = PADR // sc - 16
+        cases.append(("ssd_surface", "ssd_surface_plane",
+                      f"plane {np.dtype(dtype).name} bsz{bsz} r16 "
+                      f"px{lo}..{hi - 1} B{B}",
+                      (src, ref, nby, nbx, bsz, 16, o, o),
+                      ssd_ops(B, bsz, 16, np.dtype(dtype).name)))
+    for dtype, bsz, r, gy, gx, oy, ox in ((np.uint8, 16, 16, 5, 7, 3, 5),
+                                          (np.int32, 8, 16, 5, 7, 3, 5),
+                                          (np.uint8, 8, 8, 9, 13, 0, 1),
+                                          (np.int32, 16, 8, 4, 6, 2, 2)):
+        hi = 256 if dtype == np.uint8 else 1021
+        Wn = 2 * r + bsz
+        src = t(rng.integers(0, hi, (gy * bsz + 3, gx * bsz + 5))
+                .astype(dtype))
+        ref = t(rng.integers(0, hi, (oy + (gy - 1) * bsz + Wn + 2,
+                                     ox + (gx - 1) * bsz + Wn + 3))
+                .astype(dtype))
+        cases.append(("ssd_surface", "ssd_surface_plane",
+                      f"plane {np.dtype(dtype).name} bsz{bsz} r{r} "
+                      f"grid{gy}x{gx} unaligned",
+                      (src, ref, gy, gx, bsz, r, oy, ox),
+                      ssd_ops(gy * gx, bsz, r, np.dtype(dtype).name)))
+    # K2 from windows (the form TPL and the temporal filter will call)
     for bsz, r, lo, hi in ((16, 16, 0, 256), (16, 16, 240, 256),
                            (8, 16, 0, 1021), (8, 16, 960, 1021),
                            (16, 8, 0, 256)):
         Wn = 2 * r + bsz
-        src = t(rng.integers(lo, hi, (8160, bsz, bsz)).astype(np.int32))
-        win = t(rng.integers(lo, hi, (8160, Wn, Wn)).astype(np.int32))
-        cases.append(("ssd_surface", f"bsz{bsz} r{r} px{lo}..{hi - 1} "
-                      "B8160", (src, win, bsz, r)))
-    # K3: luma 16/32/64 and chroma 8/16/32 blocks
+        src = t(rng.integers(lo, hi, (B, bsz, bsz)).astype(np.int32))
+        win = t(rng.integers(lo, hi, (B, Wn, Wn)).astype(np.int32))
+        cases.append(("ssd_surface", "ssd_surface",
+                      f"windows bsz{bsz} r{r} px{lo}..{hi - 1} B{B}",
+                      (src, win, bsz, r), ssd_ops(B, bsz, r, "int32")))
+
     filt = np.concatenate([np.asarray(IP.SUBPEL_FILTERS_8),
                            np.asarray(IP.SUBPEL_FILTERS_8SMOOTH),
                            np.asarray(IP.SUBPEL_FILTERS_8SHARP)])
-    for n, B in ((16, 8160), (8, 8160), (32, 2040), (16, 2040),
-                 (64, 510), (32, 510)):
-        region = t(rng.integers(0, 256, (B, n + 7, n + 7)).astype(np.int32))
-        kx = t(filt[rng.integers(0, len(filt), B)].astype(np.int32))
-        ky = t(filt[rng.integers(0, len(filt), B)].astype(np.int32))
-        cases.append(("convolve_8tap", f"{n}x{n} B{B}",
-                      (region, kx, ky, n, n)))
-    # K1: MC regions, full-pel refine blocks, chroma regions; uint8 and
+
+    def taps(n_blk):
+        return (t(filt[rng.integers(0, len(filt), n_blk)].astype(np.int32)),
+                t(filt[rng.integers(0, len(filt), n_blk)].astype(np.int32)))
+
+    def conv_ops(n_blk, n, kind):
+        # 8 multiply-adds per horizontal and per vertical output
+        return 2 * 8 * n_blk * ((n + 7) * n + n * n), kind
+
+    # K3 from a plane: luma 16/32/64 and chroma 8/16/32 blocks of a padded
+    # 1080p plane, origins anywhere inside it; then origins that hit the
+    # clamp on every side
+    plane = t(rng.integers(0, 256, (H + 2 * PADR, W + 2 * PADR))
+              .astype(np.uint8))
+    for n, nb in ((16, 8160), (8, 8160), (32, 2040), (16, 2040),
+                  (64, 510), (32, 510)):
+        br = t(rng.integers(0, H + 2 * PADR - n - 7, nb).astype(np.int32))
+        bc = t(rng.integers(0, W + 2 * PADR - n - 7, nb).astype(np.int32))
+        cases.append(("convolve_8tap", "convolve_8tap_plane",
+                      f"plane {n}x{n} B{nb}",
+                      (plane, br, bc, *taps(nb), n, n),
+                      conv_ops(nb, n, "uint8")))
+    small = t(rng.integers(0, 256, (90, 117)).astype(np.uint8))
+    for n in (8, 16, 32, 64):
+        br = t(rng.integers(-n - 20, 90 + 20, 301).astype(np.int32))
+        bc = t(rng.integers(-n - 20, 117 + 20, 301).astype(np.int32))
+        cases.append(("convolve_8tap", "convolve_8tap_plane",
+                      f"plane {n}x{n} B301 clamped origins",
+                      (small, br, bc, *taps(301), n, n),
+                      conv_ops(301, n, "uint8")))
+    # K3 from int32 regions
+    for n, nb in ((16, 8160), (8, 8160), (32, 2040), (16, 2040),
+                  (64, 510), (32, 510)):
+        region = t(rng.integers(0, 256, (nb, n + 7, n + 7)).astype(np.int32))
+        cases.append(("convolve_8tap", "convolve_8tap",
+                      f"regions {n}x{n} B{nb}", (region, *taps(nb), n, n),
+                      conv_ops(nb, n, "int32")))
+    # K1: full-pel refine blocks, MC regions, chroma regions; uint8 and
     # int32 planes of a PADR-padded 1080p reference
-    for dtype, wn, B in ((np.uint8, 23, 8160), (np.uint8, 16, 8160),
-                         (np.uint8, 15, 8160), (np.uint8, 39, 2040),
-                         (np.uint8, 71, 510), (np.int32, 25, 8160)):
-        plane = t(rng.integers(0, 256, (H + 128, W + 128)).astype(dtype))
-        br = t(rng.integers(0, H + 128 - wn, B).astype(np.int32))
-        bc = t(rng.integers(0, W + 128 - wn, B).astype(np.int32))
-        cases.append(("gather_windows", f"{np.dtype(dtype).name} {wn}x{wn} "
-                      f"B{B}", (plane, br, bc, wn, wn)))
+    for dtype, wn, nb in ((np.uint8, 16, 8160), (np.uint8, 23, 8160),
+                          (np.uint8, 15, 8160), (np.uint8, 39, 2040),
+                          (np.uint8, 71, 510), (np.int32, 25, 8160)):
+        pl = t(rng.integers(0, 256, (H + 128, W + 128)).astype(dtype))
+        br = t(rng.integers(0, H + 128 - wn, nb).astype(np.int32))
+        bc = t(rng.integers(0, W + 128 - wn, nb).astype(np.int32))
+        cases.append(("gather_windows", "gather_windows",
+                      f"{np.dtype(dtype).name} {wn}x{wn} B{nb}",
+                      (pl, br, bc, wn, wn), (0, "uint8")))
     # K4: real quantizer params (qindex 120) and random ones that make the
     # int32 products wrap, at n = 64, 256, 1024
     pq = pq_array(Q.build_plane_quant(QINDEX, 0, 0))
-    for n, rows, log_scale in ((64, 16320, 0), (256, 8160, 0),
+    for n, rows, log_scale in ((256, 8160, 0), (64, 16320, 0),
                                (1024, 2040, 1), (1024, 510, 2)):
+        # abs, compare, add, clamp x2, 3 multiplies, 2 adds, 3 shifts,
+        # select, 2 sign multiplies
+        ops = (16 * rows * n, "int32")
         coeff = t(rng.integers(-(1 << 15), 1 << 15, (rows, n))
                   .astype(np.int32))
         dc = np.arange(n) == 0
         par = [t(np.where(dc, row[0], row[1]).astype(np.int32))
                for row in pq]
-        cases.append(("quantize_b_vec", f"n{n} rows{rows} q{QINDEX}",
-                      (coeff, *par, log_scale)))
+        cases.append(("quantize_b_vec", "quantize_b_vec",
+                      f"n{n} rows{rows} q{QINDEX}",
+                      (coeff, *par, log_scale), ops))
         par = [t(rng.integers(a, b, n).astype(np.int32))
                for a, b in ((20, 1000), (10, 500), (1 << 12, 1 << 16),
                             (1 << 14, 1 << 16), (4, 7000))]
         coeff = t(rng.integers(-(1 << 20), 1 << 20, (rows, n))
                   .astype(np.int32))
-        cases.append(("quantize_b_vec", f"n{n} rows{rows} random-params",
-                      (coeff, *par, log_scale)))
+        cases.append(("quantize_b_vec", "quantize_b_vec",
+                      f"n{n} rows{rows} random-params",
+                      (coeff, *par, log_scale), ops))
     return cases
 
 
+def bound_ms(args, outs, operations):
+    """(ms, "bytes" | "operations"): the larger of the tensors' bytes
+    (each input read once, each output written once) at the card's memory
+    rate and the operations at the peak rate of their type."""
+    import torch
+    nbytes = sum(a.numel() * a.element_size() for a in (*args, *outs)
+                 if isinstance(a, torch.Tensor))
+    count, kind = operations
+    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+    t_ops = count / OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def phase_kernels(dev) -> dict:
-    """Each kernel against its plain version: exact, with times."""
+    """Each kernel entry against its plain version: exact, with times."""
     import torch
 
     from aom_av1_lavish_torch.ops import kernels as K
 
     recs = {name: dict(name=name, route="cuda", source=src, replaces=rep,
-                       max_abs_err=0.0, ms=None, plain_ms=None)
+                       max_abs_err=0.0, ms=None, plain_ms=None,
+                       bound_ms=None, bound_by=None, library_ms=None,
+                       graph_ms=None)
             for name, (src, rep) in KERNELS.items()}
-    log(f"{'kernel':<16} {'shape':<34} {'max_err':>8} {'kernel ms':>10} "
-        f"{'plain ms':>10}")
-    for name, label, args in _cases(dev):
-        wrapper = getattr(K, name)
-        plain = getattr(K, name + "_plain")
+    log(f"{'kernel':<15} {'entry and shape':<47} {'max_err':>7} "
+        f"{'kernel ms':>10} {'graph ms':>9} {'plain ms':>10} "
+        f"{'bound ms':>9} by")
+    n_cases = 0
+    for name, fn, label, args, operations in _cases(dev):
+        wrapper = getattr(K, fn)
+        plain = getattr(K, fn + "_plain")
         got = wrapper(*args)
         want = plain(*args)
         torch.cuda.synchronize()
@@ -168,28 +317,108 @@ def phase_kernels(dev) -> dict:
             err = max(err, float((g.double() - w.double()).abs().max())
                       if g.numel() else 0.0)
         ms = cuda_ms(lambda: wrapper(*args))
+        g_ms = graph_ms(lambda: wrapper(*args))
         plain_ms = cuda_ms(lambda: plain(*args), reps=3)
-        log(f"{name:<16} {label:<34} {err:>8g} {ms:>10.4f} "
-            f"{plain_ms:>10.4f}")
+        b_ms, b_by = bound_ms(args, got, operations)
+        log(f"{name:<15} {label:<47} {err:>7g} {ms:>10.4f} {g_ms:>9.4f} "
+            f"{plain_ms:>10.4f} {b_ms:>9.4f} {b_by}")
         rec = recs[name]
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         if rec["ms"] is None:          # the first case is the headline one
-            rec["ms"], rec["plain_ms"] = ms, plain_ms
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                       bound_by=b_by, graph_ms=g_ms)
         if err != 0.0:
             raise AssertionError(f"{name} {label}: kernel differs from its "
                                  f"plain version (max abs err {err})")
+        n_cases += 1
+    log(f"{n_cases} cases bit-equal to their plain versions")
     return recs
 
 
-def phase_slice(dev, frames) -> dict:
-    """The 1080p slice with the launch counters reset just before it;
-    returns the launch counts."""
+def phase_before_after(dev) -> None:
+    """The call paths of the first slice beside the plane-form entries
+    that replaced them, on the same 1080p inputs, timed in turns (before,
+    after, after, before) and reported as the mean of each pair, and once
+    each from a CUDA graph (the device's time without the host's)."""
     import numpy as np
     import torch
 
-    from aom_av1_lavish_tpu.utils import profiler
+    from aom_av1_lavish_torch.common import interpred as IP
+    from aom_av1_lavish_torch.ops import kernels as K
+
+    rng = np.random.default_rng(1)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    nby, nbx = H // 16, W // 16
+    B = nby * nbx
+    src = t(rng.integers(0, 256, (H, W)).astype(np.uint8))
+    ref = t(rng.integers(0, 256, (H + 2 * PADR, W + 2 * PADR))
+            .astype(np.uint8))
+    src_blk = K.stride_windows(src, 0, 0, nby, nbx, 16, 16).to(torch.int32)
+    src_h = t(rng.integers(0, 1021, (H // 2, W // 2)).astype(np.int32))
+    ref_h = t(rng.integers(0, 1021, (H // 2 + PADR, W // 2 + PADR))
+              .astype(np.int32))
+    src_h_blk = K.stride_windows(src_h, 0, 0, nby, nbx, 8, 8).contiguous()
+    filt = t(np.asarray(IP.SUBPEL_FILTERS_8).astype(np.int32))
+    br = t(rng.integers(0, H + 2 * PADR - 23, B).astype(np.int32))
+    bc = t(rng.integers(0, W + 2 * PADR - 23, B).astype(np.int32))
+    kx = filt[t(rng.integers(0, 16, B))]
+    ky = filt[t(rng.integers(0, 16, B))]
+
+    def k2_before():
+        win = K.stride_windows(ref, PADR - 16, PADR - 16, nby, nbx, 16,
+                               48).to(torch.int32)
+        return K.ssd_surface(src_blk, win, 16, 16)
+
+    def k2_after():
+        return K.ssd_surface_plane(src, ref, nby, nbx, 16, 16, PADR - 16,
+                                   PADR - 16)
+
+    def k2h_before():
+        win = K.stride_windows(ref_h, PADR // 2 - 16, PADR // 2 - 16, nby,
+                               nbx, 8, 40).to(torch.int32)
+        return K.ssd_surface(src_h_blk, win, 8, 16)
+
+    def k2h_after():
+        return K.ssd_surface_plane(src_h, ref_h, nby, nbx, 8, 16,
+                                   PADR // 2 - 16, PADR // 2 - 16)
+
+    def k3_before():
+        region = K.gather_windows(ref, br, bc, 23, 23).to(torch.int32)
+        return K.convolve_8tap(region, kx, ky, 16, 16)
+
+    def k3_after():
+        return K.convolve_8tap_plane(ref, br, bc, kx, ky, 16, 16)
+
+    for label, before, after in (
+            ("K2 full res: windows -> int32 -> ssd_surface | "
+             "ssd_surface_plane (uint8, bsz16 r16)", k2_before, k2_after),
+            ("K2 half res: windows -> ssd_surface | ssd_surface_plane "
+             "(int32, bsz8 r16)", k2h_before, k2h_after),
+            ("K3 16x16: gather -> int32 -> convolve_8tap | "
+             "convolve_8tap_plane", k3_before, k3_after)):
+        if not torch.equal(before(), after()):
+            raise AssertionError(f"{label}: the two call paths differ")
+        b0 = cuda_ms(before)
+        a0 = cuda_ms(after)
+        a1 = cuda_ms(after)
+        b1 = cuda_ms(before)
+        log(f"before/after B{B} {label}: {(b0 + b1) / 2:.4f} ms "
+            f"({b0:.4f}, {b1:.4f}) | {(a0 + a1) / 2:.4f} ms "
+            f"({a0:.4f}, {a1:.4f}); from a graph {graph_ms(before):.4f} | "
+            f"{graph_ms(after):.4f} ms")
+
+
+def run_slice(dev, frames):
+    """One 1080p slice -> (encoder, payloads, seconds, launches, stage
+    seconds), the launch counters set to 0 just before it."""
+    import torch
+
     from aom_av1_lavish_torch.encoder.gop import TorchGopEncoder
     from aom_av1_lavish_torch.ops import kernels as K
+    from aom_av1_lavish_torch.utils import profiler
 
     profiler.enable()
     profiler.reset()
@@ -203,6 +432,15 @@ def phase_slice(dev, frames) -> dict:
     launches = dict(K.LAUNCHES)
     stages = profiler.times()
     profiler.enable(False)
+    return enc, payloads, secs, launches, stages
+
+
+def phase_slice(dev, frames) -> dict:
+    """The 1080p slice with the launch counters reset just before it;
+    returns the launch counts."""
+    import numpy as np
+
+    enc, payloads, secs, launches, stages = run_slice(dev, frames)
     if len(payloads) != N_FRAMES or not all(payloads):
         raise AssertionError(f"expected {N_FRAMES} non-empty TUs, got "
                              f"{[len(p) for p in payloads]}")
@@ -228,12 +466,85 @@ def phase_slice(dev, frames) -> dict:
     return launches
 
 
+def phase_warm(dev, frames, n: int) -> None:
+    """n more runs of the slice: median, minimum and maximum of the total
+    and of each GOP stage, and the peak device memory."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    totals, per_stage = [], {}
+    for _ in range(n):
+        _, _, secs, _, stages = run_slice(dev, frames)
+        totals.append(secs)
+        for k, v in stages.items():
+            if k.startswith("gop/"):
+                per_stage.setdefault(k, []).append(v)
+    med = statistics.median(totals)
+    log(f"warm slice n={n}: median {med:.3f} s (min {min(totals):.3f}, max "
+        f"{max(totals):.3f}), {N_FRAMES / med:.4f} frames/s; runs "
+        f"{[round(x, 3) for x in totals]}")
+    for k, v in sorted(per_stage.items(),
+                       key=lambda kv: -statistics.median(kv[1])):
+        m = statistics.median(v)
+        log(f"  warm stage {k:<20} median {m:7.3f} s (min {min(v):.3f}, max "
+            f"{max(v):.3f}), {100 * m / med:.0f}% of the median total")
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f}"
+        " MiB")
+
+
+def phase_profile(dev, frames) -> None:
+    """One slice under torch.profiler: device time of each hand kernel,
+    of everything else, and the device-busy share of the wall clock."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, secs, launches, _ = run_slice(dev, frames)
+    hand = {name: [0.0, 0] for name in DEVICE_FUNCS}
+    other_us, other_n, copies_us = 0.0, 0, 0.0
+    for ev in prof.key_averages():
+        # device-side events only: a host-side operator event repeats the
+        # time of the kernels it launched
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if not us:
+            continue
+        for name, funcs in DEVICE_FUNCS.items():
+            if any(f in ev.key for f in funcs):
+                hand[name][0] += us
+                hand[name][1] += ev.count
+                break
+        else:
+            if "memcpy" in ev.key.lower() or "memset" in ev.key.lower():
+                copies_us += us
+            else:
+                other_us += us
+                other_n += ev.count
+    hand_us = sum(v[0] for v in hand.values())
+    total_us = hand_us + other_us + copies_us
+    if total_us <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    log(f"profiled slice: {secs:.3f} s wall clock under the profiler, "
+        f"{total_us / 1e3:.2f} ms of device time "
+        f"({100 * total_us / 1e6 / secs:.1f}% of that wall clock)")
+    for name, (us, n) in hand.items():
+        log(f"  device {name:<15} {us / 1e3:8.3f} ms in {n} kernel runs "
+            f"({launches[name]} launches counted)")
+    log(f"  device hand kernels together {hand_us / 1e3:.3f} ms; other "
+        f"kernels {other_us / 1e3:.2f} ms in {other_n} runs; memcpy/memset "
+        f"{copies_us / 1e3:.2f} ms")
+
+
 def phase_decode(dev, frames, w, h) -> None:
-    """Encode at w x h, decode with the repo's decoder: reference slots
+    """Encode at w x h, decode with the port's decoder: reference slots
     must equal the encoder's recon slots exactly."""
     import numpy as np
 
-    from aom_av1_lavish_tpu.decoder.decoder import decode_frame_obus
+    from aom_av1_lavish_torch.decoder.decoder import decode_frame_obus
     from aom_av1_lavish_torch.encoder.gop import TorchGopEncoder
 
     enc = TorchGopEncoder(w, h, device=dev, **KW)
@@ -259,15 +570,22 @@ def phase_decode(dev, frames, w, h) -> None:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--warm", type=int, default=0, metavar="N",
+                    help="run the slice N more times and print medians")
+    ap.add_argument("--profile", action="store_true",
+                    help="run one more slice under torch.profiler")
+    opts = ap.parse_args()
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from aom_av1_lavish_tpu.runtime import native_available
     from aom_av1_lavish_torch.ops import build
-    from bench import make_frames
+    from aom_av1_lavish_torch.runtime import native_available
+    from aom_av1_lavish_torch.utils.clips import make_frames
 
     dev = torch.device("cuda")
     card = gpu_line()
@@ -286,17 +604,18 @@ def main() -> int:
                 log("  " + line.strip())
 
     recs = phase_kernels(dev)
+    phase_before_after(dev)
     frames = make_frames(N_FRAMES, W, H)
     launches = phase_slice(dev, frames)
+    if opts.warm:
+        phase_warm(dev, frames, opts.warm)
+    if opts.profile:
+        phase_profile(dev, frames)
     phase_decode(dev, make_frames(N_FRAMES, 352, 288), 352, 288)
 
     kernels = []
     for name, rec in recs.items():
-        kernels.append(dict(name=name, route=rec["route"],
-                            source=rec["source"], replaces=rec["replaces"],
-                            launches=launches[name],
-                            max_abs_err=rec["max_abs_err"], ms=rec["ms"],
-                            plain_ms=rec["plain_ms"]))
+        kernels.append(dict(rec, launches=launches[name]))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {
@@ -306,5 +625,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.modules["jax"] = None   # any import of jax now raises ImportError
+    # any import of jax or of the JAX package now raises ImportError
+    sys.modules["jax"] = None
+    sys.modules["aom_av1_lavish_tpu"] = None
     sys.exit(main())

@@ -24,15 +24,16 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions(cuda_device):
-    """Every kernel on the card against its plain version, exact, at the
-    1080p slice's shapes (the cases chip_smoke.py times), and each launch
-    counted once."""
+    """Every kernel entry on the card against its plain version, exact, at
+    the 1080p slice's shapes (the cases chip_smoke.py times: both entries
+    of K2 and K3 among them), and each launch counted once under its
+    kernel's name."""
     import chip_smoke
-    for name, label, args in chip_smoke._cases(cuda_device):
+    for name, fn, label, args, _ in chip_smoke._cases(cuda_device):
         before = K.LAUNCHES[name]
-        got = getattr(K, name)(*args)
+        got = getattr(K, fn)(*args)
         assert K.LAUNCHES[name] == before + 1
-        want = getattr(K, name + "_plain")(*args)
+        want = getattr(K, fn + "_plain")(*args)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         for g, w in zip(got, want):
@@ -43,9 +44,9 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
 def test_cuda_gop_recon_matches_decoder(cuda_device):
     """The slice's configuration at 96x64 on the card: 8 TUs whose
     decode reproduces every reference slot of the encoder."""
-    from aom_av1_lavish_tpu.decoder.decoder import decode_frame_obus
+    from aom_av1_lavish_torch.decoder.decoder import decode_frame_obus
     from aom_av1_lavish_torch.encoder.gop import TorchGopEncoder
-    from bench import make_frames
+    from aom_av1_lavish_torch.utils.clips import make_frames
 
     frames = make_frames(8, 96, 64)
     enc = TorchGopEncoder(96, 64, device=cuda_device, qindex=120,
@@ -63,3 +64,63 @@ def test_cuda_gop_recon_matches_decoder(cuda_device):
             continue
         for pe, pd in zip(enc.slots[slot], state["slots"][slot]["planes"]):
             np.testing.assert_array_equal(pe, pd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bsz,radius,lo,hi", [
+    (torch.uint8, 16, 16, 0, 256), (torch.uint8, 16, 16, 240, 256),
+    (torch.int32, 8, 16, 0, 1021), (torch.int32, 8, 16, 960, 1021),
+    (torch.uint8, 8, 5, 0, 256), (torch.int32, 16, 3, 0, 1021)])
+def test_cuda_ssd_surface_plane_matches_plain(cuda_device, dtype, bsz,
+                                              radius, lo, hi):
+    """K2 from planes on the card, exact: a 7x9 block grid (no multiple of
+    the kernel's block group) at an odd window origin, so both the 16-byte
+    and the unaligned staging paths run across the cases."""
+    rng = np.random.default_rng(bsz + radius)
+    nby, nbx, oy, ox = 7, 9, 1, 3
+    Wn = 2 * radius + bsz
+    npdt = np.uint8 if dtype == torch.uint8 else np.int32
+    src = torch.as_tensor(rng.integers(lo, hi, (nby * bsz, nbx * bsz))
+                          .astype(npdt), device=cuda_device)
+    ref = torch.as_tensor(rng.integers(
+        lo, hi, (oy + (nby - 1) * bsz + Wn, ox + (nbx - 1) * bsz + Wn))
+        .astype(npdt), device=cuda_device)
+    before = K.LAUNCHES["ssd_surface"]
+    got = K.ssd_surface_plane(src, ref, nby, nbx, bsz, radius, oy, ox)
+    assert K.LAUNCHES["ssd_surface"] == before + 1
+    want = K.ssd_surface_plane_plain(src, ref, nby, nbx, bsz, radius, oy, ox)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 16, 32, 64])
+def test_cuda_convolve_8tap_plane_matches_plain(cuda_device, n):
+    """K3 from a plane on the card, exact, with origins on and off the
+    plane (the clamp) and every row of the three filter banks."""
+    from aom_av1_lavish_torch.common import interpred as IP
+    rng = np.random.default_rng(n)
+    B = 333
+    plane = torch.as_tensor(rng.integers(0, 256, (150, 201))
+                            .astype(np.uint8), device=cuda_device)
+    br = torch.as_tensor(rng.integers(-n - 10, 160, B).astype(np.int32),
+                         device=cuda_device)
+    bc = torch.as_tensor(rng.integers(-n - 10, 211, B).astype(np.int32),
+                         device=cuda_device)
+    filt = np.concatenate([np.asarray(IP.SUBPEL_FILTERS_8),
+                           np.asarray(IP.SUBPEL_FILTERS_8SMOOTH),
+                           np.asarray(IP.SUBPEL_FILTERS_8SHARP)])
+    kx = torch.as_tensor(filt[rng.integers(0, len(filt), B)]
+                         .astype(np.int32), device=cuda_device)
+    ky = torch.as_tensor(filt[rng.integers(0, len(filt), B)]
+                         .astype(np.int32), device=cuda_device)
+    before = K.LAUNCHES["convolve_8tap"]
+    got = K.convolve_8tap_plane(plane, br, bc, kx, ky, n, n)
+    assert K.LAUNCHES["convolve_8tap"] == before + 1
+    want = K.convolve_8tap_plane_plain(plane, br, bc, kx, ky, n, n)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_entry_points_default_to_the_card(cuda_device):
+    from aom_av1_lavish_torch.ops.inter import DeviceChainEncoder
+    assert DeviceChainEncoder().device.type == "cuda"

@@ -77,7 +77,7 @@ def test_ivf_bytes_match_reference(runs, tmp_path):
     write_ivf(want, [(p, i) for i, p in enumerate(ref_payloads) if p],
               W, H, 30, 1)
     got = str(tmp_path / "port.ivf")
-    encode_gop_ivf(got, _clip(), W, H, **KW)
+    encode_gop_ivf(got, _clip(), W, H, device="cpu", **KW)
     with open(got, "rb") as a, open(want, "rb") as b:
         assert a.read() == b.read()
 
@@ -147,22 +147,25 @@ def test_decoder_reproduces_port_recon(runs, tmp_path):
 
 
 def test_port_runs_with_jax_blocked(runs, tmp_path):
-    """A fresh interpreter that cannot import jax runs the port's encode
-    to the end and writes the same stream."""
+    """A fresh interpreter that can import neither jax nor the JAX
+    package runs the port's encode to the end and writes the same
+    stream."""
     _, (_, payloads, _) = runs
     out = str(tmp_path / "nojax.ivf")
     src = str(tmp_path / "clip.npz")
     np.savez(src, *[p for f in _clip() for p in f])
     code = (
         "import sys; sys.modules['jax'] = None\n"
+        "sys.modules['aom_av1_lavish_tpu'] = None\n"
         f"sys.path.insert(0, {ROOT!r})\n"
         "import numpy as np\n"
         "from aom_av1_lavish_torch.encoder.gop import encode_gop_ivf\n"
         f"z = np.load({src!r})\n"
         "p = [z[f'arr_{i}'] for i in range(len(z.files))]\n"
         "frames = [tuple(p[i:i + 3]) for i in range(0, len(p), 3)]\n"
-        f"encode_gop_ivf({out!r}, frames, {W}, {H}, **{KW!r})\n"
-        "assert not any(m == 'jax' or m.startswith('jax.')\n"
+        f"encode_gop_ivf({out!r}, frames, {W}, {H}, device='cpu', "
+        f"**{KW!r})\n"
+        "assert not any(m.split('.')[0] in ('jax', 'aom_av1_lavish_tpu')\n"
         "               for m, v in sys.modules.items() if v is not None)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
@@ -184,13 +187,13 @@ def test_port_runs_with_jax_blocked(runs, tmp_path):
 def test_unported_configurations_raise(kw, exc, what):
     args = dict(KW, **kw)
     with pytest.raises(exc, match=what):
-        TorchGopEncoder(W, H, **args)
+        TorchGopEncoder(W, H, device="cpu", **args)
 
 
 def test_short_gf_group_raises():
     """A 10-frame clip leaves a 1-frame group after the 8-frame one; the
     reference codes it as a single P frame outside the chain."""
-    enc = TorchGopEncoder(W, H, **KW)
+    enc = TorchGopEncoder(W, H, device="cpu", **KW)
     with pytest.raises(NotImplementedError, match="item 5"):
         enc.encode_sequence(_clip(n=10))
 
@@ -198,7 +201,8 @@ def test_short_gf_group_raises():
 def test_device_rdo_key_raises():
     """At <= 720x576 without a cpu_used above 6 the reference codes the
     KEY with the device RDO, which is not ported yet."""
-    enc = TorchGopEncoder(W, H, **dict(KW, cpu_used=None, enable_tpl=False,
-                                       enable_tf=False))
+    enc = TorchGopEncoder(W, H, device="cpu",
+                          **dict(KW, cpu_used=None, enable_tpl=False,
+                                 enable_tf=False))
     with pytest.raises(NotImplementedError, match="item 11"):
         enc.encode_sequence(_clip(n=1))

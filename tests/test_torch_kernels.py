@@ -15,6 +15,7 @@ import torch
 import aom_av1_lavish_tpu.ops.pallas_kernels as PK
 from aom_av1_lavish_tpu.common import interpred as IP
 from aom_av1_lavish_tpu.common import quant as Q
+from aom_av1_lavish_tpu.ops import inter_tpu as IJ
 from aom_av1_lavish_tpu.ops import wavefront as WJ
 from aom_av1_lavish_torch.ops import kernels as K
 from aom_av1_lavish_torch.ops import wavefront as WT
@@ -98,6 +99,76 @@ def test_ssd_surface_matches_pallas_interpret(pallas_interpret, bsz,
     np.testing.assert_array_equal(got, grid)
 
 
+def _ssd_planes(bsz, radius, nby, nbx, lo, hi, dtype, seed=13):
+    """A source plane and a reference plane padded by `radius` + 3 on
+    every side (window origin of block (0, 0) at (3, 3))."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(lo, hi, (nby * bsz, nbx * bsz)).astype(dtype)
+    ref = rng.integers(lo, hi, (nby * bsz + 2 * radius + 6,
+                                nbx * bsz + 2 * radius + 6)).astype(dtype)
+    return src, ref
+
+
+@pytest.mark.parametrize("bsz,dtype,hi", [(16, np.uint8, 91),
+                                          (8, np.int32, 321)])
+def test_ssd_surface_plane_matches_jax_on_reference_windows(xla_path, bsz,
+                                                            dtype, hi):
+    """The plane form against the JAX ssd_surface fed with windows cut by
+    the reference's _stride_windows and tiles cut as its caller cuts them,
+    at the search's radius 16: full res (uint8 pixels <= 90) and half res
+    (int32 2x2 sums <= 320), where the reference's float32 sums are exact
+    integers."""
+    r, nby, nbx = 16, 3, 5
+    src, ref = _ssd_planes(bsz, r, nby, nbx, 0, hi, dtype)
+    got = K.ssd_surface_plane(torch.from_numpy(src), torch.from_numpy(ref),
+                              nby, nbx, bsz, r, 3, 3)
+    assert got.dtype == torch.float32
+    win = IJ._stride_windows(jnp.asarray(ref), 3, 3, nby, nbx, bsz,
+                             2 * r + bsz).astype(jnp.int32)
+    blk = jnp.asarray(src).reshape(nby, bsz, nbx, bsz) \
+        .transpose(0, 2, 1, 3).reshape(nby * nbx, bsz, bsz) \
+        .astype(jnp.int32)
+    want = np.asarray(PK.ssd_surface(blk, win, bsz, r))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("bsz,dtype,lo,hi", [(16, np.uint8, 0, 256),
+                                             (16, np.uint8, 240, 256),
+                                             (8, np.int32, 0, 1021),
+                                             (8, np.int32, 960, 1021),
+                                             (8, np.uint8, 0, 256),
+                                             (16, np.int32, 0, 1021)])
+def test_ssd_surface_plane_matches_int64_oracle_full_range(bsz, dtype, lo,
+                                                           hi):
+    """Full-range and bright content (0..255 at full res, 0..1020 at half
+    res) against the direct int64 SSD on windows cut with numpy (ROADMAP
+    F1: the JAX float32 identity is off by one there)."""
+    r, nby, nbx = 16, 2, 3
+    src, ref = _ssd_planes(bsz, r, nby, nbx, lo, hi, dtype)
+    got = K.ssd_surface_plane(torch.from_numpy(src), torch.from_numpy(ref),
+                              nby, nbx, bsz, r, 3, 3)
+    Wn = 2 * r + bsz
+    blk = np.stack([src[by * bsz:(by + 1) * bsz, bx * bsz:(bx + 1) * bsz]
+                    for by in range(nby) for bx in range(nbx)])
+    win = np.stack([ref[3 + by * bsz:3 + by * bsz + Wn,
+                        3 + bx * bsz:3 + bx * bsz + Wn]
+                    for by in range(nby) for bx in range(nbx)])
+    np.testing.assert_array_equal(got.numpy(),
+                                  _ssd_oracle(blk, win, bsz, r))
+
+
+def test_ssd_surface_plane_equals_the_window_form():
+    """Both entries of K2 compute one function."""
+    r, bsz, nby, nbx = 8, 16, 2, 4
+    src, ref = _ssd_planes(bsz, r, nby, nbx, 0, 256, np.uint8)
+    src, ref = torch.from_numpy(src), torch.from_numpy(ref)
+    a = K.ssd_surface_plane(src, ref, nby, nbx, bsz, r, 3, 3)
+    win = K.stride_windows(ref, 3, 3, nby, nbx, bsz, 2 * r + bsz)
+    blk = K.stride_windows(src, 0, 0, nby, nbx, bsz, bsz)
+    b = K.ssd_surface(blk.to(torch.int32), win.to(torch.int32), bsz, r)
+    assert torch.equal(a, b)
+
+
 def _quant_params(n, seed):
     rng = np.random.default_rng(seed)
     return [rng.integers(a, b, (n,)).astype(np.int32)
@@ -168,6 +239,48 @@ def test_convolve_8tap_matches_jax(monkeypatch, bh, bw):
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("n", [8, 16, 32, 64])
+def test_convolve_8tap_plane_matches_jax_gather_and_convolve(
+        pallas_interpret, n):
+    """The plane form against the JAX package's own chain: gather_windows
+    cuts the (n+7, n+7) regions from the uint8 plane, convolve_8tap
+    filters their int32 copy (both Pallas kernels in interpret mode)."""
+    rng = np.random.default_rng(17 + n)
+    H, W, B = 160, 256, 9
+    plane = rng.integers(0, 256, (H, W)).astype(np.uint8)
+    br = rng.integers(0, H - n - 8, B).astype(np.int32)
+    bc = rng.integers(0, W - n - 8, B).astype(np.int32)
+    filt = np.concatenate([np.asarray(IP.SUBPEL_FILTERS_8),
+                           np.asarray(IP.SUBPEL_FILTERS_8SMOOTH),
+                           np.asarray(IP.SUBPEL_FILTERS_8SHARP)])
+    kx = filt[rng.integers(0, len(filt), B)].astype(np.int32)
+    ky = filt[rng.integers(0, len(filt), B)].astype(np.int32)
+    got = K.convolve_8tap_plane(*map(torch.from_numpy,
+                                     (plane, br, bc, kx, ky)), n, n)
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (B, n, n)
+    region = PK.gather_windows(jnp.asarray(plane), jnp.asarray(br),
+                               jnp.asarray(bc), n + 7, n + 7)
+    want = np.asarray(PK.convolve_8tap(region.astype(jnp.int32),
+                                       jnp.asarray(kx), jnp.asarray(ky),
+                                       n, n))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_convolve_8tap_plane_clamps_origins_like_the_gather():
+    """Origins off the plane read its edge, as gather_windows does."""
+    rng = np.random.default_rng(5)
+    plane = torch.from_numpy(rng.integers(0, 256, (40, 50))
+                             .astype(np.uint8))
+    br = torch.tensor([-9, 30, 0, 39], dtype=torch.int32)
+    bc = torch.tensor([44, -5, 0, 49], dtype=torch.int32)
+    taps = torch.from_numpy(np.asarray(IP.SUBPEL_FILTERS_8)[[3, 8, 0, 15]]
+                            .astype(np.int32))
+    got = K.convolve_8tap_plane(plane, br, bc, taps, taps.flip(0), 16, 16)
+    region = K.gather_windows(plane, br, bc, 23, 23).to(torch.int32)
+    want = K.convolve_8tap(region, taps, taps.flip(0), 16, 16)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("wr,wc,dtype", [(23, 23, "uint8"),
                                          (39, 39, "uint8"),
                                          (15, 23, "uint8"),
@@ -226,6 +339,32 @@ def test_wrappers_check_dtype_shape_and_device():
     meta = torch.empty((2, 8, 8), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="expected all on the CPU"):
         K.ssd_surface(meta, z((2, 24, 24), dtype=torch.int32), 8, 8)
+
+
+def test_plane_form_wrappers_check_dtype_and_extent():
+    def z(shape, dtype=torch.uint8):
+        return torch.zeros(shape, dtype=dtype)
+    with pytest.raises(ValueError, match="both uint8 or both int32"):
+        K.ssd_surface_plane(z((16, 16)), z((48, 48), dtype=torch.int32), 1,
+                            1, 16, 16, 0, 0)
+    with pytest.raises(ValueError, match="does not hold every"):
+        K.ssd_surface_plane(z((16, 32)), z((48, 63)), 1, 2, 16, 16, 0, 0)
+    with pytest.raises(ValueError, match="does not hold 2x1 blocks"):
+        K.ssd_surface_plane(z((16, 16)), z((64, 48)), 2, 1, 16, 16, 0, 0)
+    with pytest.raises(ValueError, match="uint8 plane"):
+        K.convolve_8tap_plane(z((40, 40), dtype=torch.int32),
+                              z(2, dtype=torch.int32),
+                              z(2, dtype=torch.int32),
+                              z((2, 8), dtype=torch.int32),
+                              z((2, 8), dtype=torch.int32), 16, 16)
+    with pytest.raises(ValueError, match=r"int32 \(B, 8\)"):
+        K.convolve_8tap_plane(z((40, 40)), z(2, dtype=torch.int32),
+                              z(2, dtype=torch.int32),
+                              z((2, 7), dtype=torch.int32),
+                              z((2, 8), dtype=torch.int32), 16, 16)
+    meta = torch.empty((40, 40), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="expected all on the CPU"):
+        K.ssd_surface_plane(z((16, 16)), meta, 1, 1, 16, 4, 0, 0)
 
 
 def test_cpu_tensors_run_the_plain_versions_and_launch_nothing():

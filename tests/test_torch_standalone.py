@@ -1,0 +1,279 @@
+"""The port stands on its own: aom_av1_lavish_torch and chip_smoke.py
+import neither jax nor aom_av1_lavish_tpu, run with both blocked, default
+to the card, and keep host-module copies that still equal the JAX
+package's.  Comparisons are exact (tables and bytes)."""
+
+import ast
+import difflib
+import importlib
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "aom_av1_lavish_torch")
+REF = os.path.join(ROOT, "aom_av1_lavish_tpu")
+BLOCKED = ("jax", "jaxlib", "aom_av1_lavish_tpu")
+KW = dict(qindex=120, gf_length=8, use_tpu=True, enable_cdef=False,
+          cpu_used=8)
+
+
+def _port_sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PORT):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(os.path.relpath(p, ROOT) for p in out)
+
+
+@pytest.mark.parametrize("path", _port_sources())
+def test_no_import_of_jax_or_the_jax_package(path):
+    """Static: no import statement anywhere in the file (module level or
+    inside a function) names jax or aom_av1_lavish_tpu."""
+    with open(os.path.join(ROOT, path)) as f:
+        tree = ast.parse(f.read(), path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad += [(node.lineno, n) for n in names
+                if n.split(".")[0] in BLOCKED]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_encode_and_decode_with_jax_and_the_jax_package_blocked(tmp_path):
+    """A fresh interpreter in which importing jax or aom_av1_lavish_tpu
+    fails encodes the 96x64 8-frame clip on the CPU and decodes it with
+    the port's own decoder: every reference slot equals the encoder's
+    recon."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = sys.modules['aom_av1_lavish_tpu'] = None\n"
+        f"sys.path.insert(0, {ROOT!r})\n"
+        "import numpy as np\n"
+        "from aom_av1_lavish_torch.decoder.decoder import decode_frame_obus\n"
+        "from aom_av1_lavish_torch.encoder.gop import TorchGopEncoder\n"
+        "from aom_av1_lavish_torch.utils.clips import make_frames\n"
+        "frames = make_frames(8, 96, 64)\n"
+        f"enc = TorchGopEncoder(96, 64, device='cpu', **{KW!r})\n"
+        "payloads = enc.encode_sequence(frames)\n"
+        "assert len(payloads) == 8 and all(payloads)\n"
+        "sh, state, shown = None, {'slots': [None] * 8}, []\n"
+        "for p in payloads:\n"
+        "    fr, sh = decode_frame_obus(p, sh, state)\n"
+        "    shown.extend(fr)\n"
+        "assert len(shown) == 8\n"
+        "n = 0\n"
+        "for slot in range(8):\n"
+        "    if enc.slots[slot] is None:\n"
+        "        continue\n"
+        "    for pe, pd in zip(enc.slots[slot],\n"
+        "                      state['slots'][slot]['planes']):\n"
+        "        assert np.array_equal(pe, pd), slot\n"
+        "        n += 1\n"
+        "assert n > 0\n"
+        "loaded = [m for m, v in sys.modules.items() if v is not None\n"
+        "          and m.split('.')[0] in ('jax', 'aom_av1_lavish_tpu')]\n"
+        "assert not loaded, loaded\n"
+        "print('planes', n)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "planes" in proc.stdout
+
+
+def _same(a, b):
+    """Exact equality of module-level data: arrays, numbers, strings and
+    (nested) tuples, lists and dicts of them."""
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        return a.dtype == b.dtype and a.shape == b.shape \
+            and np.array_equal(a, b)
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() \
+            and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) \
+            and all(_same(x, y) for x, y in zip(a, b))
+    return type(a) is type(b) and a == b
+
+
+#: strings are left out: the one there is (tables._DATA) is a file path
+_DATA = (np.ndarray, int, float, bool, tuple, list, dict)
+
+
+@pytest.mark.parametrize("module", ["bitstream.constants",
+                                    "bitstream.tables", "common.quant",
+                                    "common.interpred", "common.txfm1d",
+                                    "common.coeffs", "common.intra",
+                                    "common.loopfilter", "common.txtype",
+                                    "common.blockd"])
+def test_copied_tables_equal_the_jax_package(module):
+    """Every module-level table and constant of the port's copy equals the
+    JAX package's, by name, dtype, shape and value."""
+    port = importlib.import_module("aom_av1_lavish_torch." + module)
+    ref = importlib.import_module("aom_av1_lavish_tpu." + module)
+
+    def data(mod):
+        return {k: v for k, v in vars(mod).items()
+                if not k.startswith("__") and isinstance(v, _DATA)}
+    dp, dr = data(port), data(ref)
+    if module == "common.quant":
+        # its tables come out of functions: the quantizer steps and the
+        # derived per-plane parameters over every qindex and bit depth
+        for mod, d in ((port, dp), (ref, dr)):
+            for bd in (8, 10, 12):
+                d[f"dc{bd}"] = [mod.dc_quant_qtx(q, 0, bd) for q in range(256)]
+                d[f"ac{bd}"] = [mod.ac_quant_qtx(q, 0, bd) for q in range(256)]
+            d["plane_quant"] = [
+                [np.asarray(getattr(mod.build_plane_quant(q, 0, 0), f))
+                 for f in ("zbin", "round", "quant", "quant_shift",
+                           "dequant")] for q in range(0, 256, 5)]
+    assert dp.keys() == dr.keys()
+    assert len(dp) > 0
+    diff = [k for k in dp if not _same(dp[k], dr[k])]
+    assert not diff, f"{module}: {diff} differ"
+
+
+#: copies that differ from their counterpart, with the most lines (removed
+#: plus added) they may differ by: the seams (a call into the port's ops,
+#: or a raise for what is not ported yet) and a few reworded comments.
+#: Every other copied file is byte-identical.
+EDITED = {"encoder/encoder.py": 40, "encoder/gop.py": 230,
+          "encoder/tpu_intra.py": 100, "encoder/tpu_inter.py": 40,
+          "encoder/tpu_rdo.py": 80, "runtime/__init__.py": 10,
+          "utils/profiler.py": 8, "encoder/lossy.py": 2,
+          "encoder/ratectrl.py": 2}
+#: files of the same name that are not copies
+OWN = {"__init__.py", "encoder/__init__.py"}
+
+
+def _verbatim_copies():
+    out = []
+    for d, _, files in os.walk(PORT):
+        for f in files:
+            rel = os.path.relpath(os.path.join(d, f), PORT)
+            if (f.endswith((".py", ".c")) and rel not in EDITED
+                    and rel not in OWN
+                    and not rel.startswith("ops" + os.sep)
+                    and os.path.exists(os.path.join(REF, rel))):
+                out.append(rel)
+    return sorted(out)
+
+
+@pytest.mark.parametrize("rel", _verbatim_copies())
+def test_verbatim_copy_equals_the_jax_package_file(rel):
+    """A host module the port copied without a seam has the bytes of its
+    counterpart (their imports are relative, so nothing needed editing):
+    an edit of one copy without the other is caught here."""
+    with open(os.path.join(PORT, rel), "rb") as a, \
+            open(os.path.join(REF, rel), "rb") as b:
+        assert a.read() == b.read(), rel
+
+
+@pytest.mark.parametrize("rel", sorted(EDITED))
+def test_edited_copy_stays_close_to_the_jax_package_file(rel):
+    """A copy that carries a seam differs from its counterpart in no more
+    lines than its seams take."""
+    with open(os.path.join(PORT, rel)) as a, \
+            open(os.path.join(REF, rel)) as b:
+        diff = difflib.unified_diff(b.read().splitlines(),
+                                    a.read().splitlines(), lineterm="", n=0)
+    changed = sum(1 for ln in diff if ln[:1] in "+-"
+                  and ln[:3] not in ("+++", "---"))
+    assert 0 < changed <= EDITED[rel], (rel, changed)
+
+
+def _entry_points():
+    from aom_av1_lavish_torch.encoder.encoder import make_sequence_header
+    from aom_av1_lavish_torch.encoder.gop import (TorchGopEncoder,
+                                                  encode_gop_ivf)
+    from aom_av1_lavish_torch.encoder.lossy import make_lossy_frame_header
+    from aom_av1_lavish_torch.encoder.tpu_intra import TorchAllIntraEncoder
+    from aom_av1_lavish_torch.ops.inter import DeviceChainEncoder
+    from aom_av1_lavish_torch.ops.wavefront import WavefrontEncoder
+    from aom_av1_lavish_torch.utils.clips import make_frames
+
+    sh = make_sequence_header(96, 64)
+    return {
+        "TorchGopEncoder": lambda **d: TorchGopEncoder(96, 64, **d, **KW),
+        "encode_gop_ivf": lambda **d: encode_gop_ivf(
+            os.devnull, make_frames(8, 96, 64), 96, 64, **d, **KW),
+        "TorchAllIntraEncoder": lambda **d: TorchAllIntraEncoder(
+            sh, make_lossy_frame_header(sh, 100), **d),
+        "WavefrontEncoder": lambda **d: WavefrontEncoder(100, 50.0, **d),
+        "DeviceChainEncoder": lambda **d: DeviceChainEncoder(**d),
+    }
+
+
+@pytest.mark.parametrize("name", ["TorchGopEncoder", "encode_gop_ivf",
+                                  "TorchAllIntraEncoder",
+                                  "WavefrontEncoder", "DeviceChainEncoder"])
+def test_entry_points_default_to_the_card_and_raise_without_one(
+        monkeypatch, name):
+    """With no `device` an entry point wants CUDA: without a CUDA device it
+    raises a RuntimeError that says so, and does not carry on on the CPU.
+    With device="cpu" it is built."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    make = _entry_points()[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+    if name != "encode_gop_ivf":
+        obj = make(device="cpu")
+        assert obj.device == torch.device("cpu")
+
+
+def test_resolve_device_names_the_card_when_there_is_one(monkeypatch):
+    from aom_av1_lavish_torch import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device() == torch.device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("what,item", [("twopass", "item 14"),
+                                       ("lossless", "item 13"),
+                                       ("all_intra_batch", "item 9"),
+                                       ("device_rdo", "item 11"),
+                                       ("single_p_frame", "item 5")])
+def test_seams_to_unported_modules_raise_and_name_their_item(what, item):
+    """A seam whose JAX module has no counterpart yet raises
+    NotImplementedError naming its ROADMAP item; none takes a host path
+    quietly."""
+    from aom_av1_lavish_torch.bitstream import constants as c
+    from aom_av1_lavish_torch.encoder import encode_lossless_ivf
+    from aom_av1_lavish_torch.encoder.encoder import make_sequence_header
+    from aom_av1_lavish_torch.encoder.gop import encode_twopass_ivf
+    from aom_av1_lavish_torch.encoder.inter import make_inter_frame_header
+    from aom_av1_lavish_torch.encoder.lossy import make_lossy_frame_header
+    from aom_av1_lavish_torch.encoder.tpu_inter import TpuInterFrameEncoder
+    from aom_av1_lavish_torch.encoder.tpu_intra import encode_tpu_ivf
+    from aom_av1_lavish_torch.encoder.tpu_rdo import TpuRdoAllIntraEncoder
+    from aom_av1_lavish_torch.utils.clips import make_frames
+
+    frames = make_frames(2, 64, 64)
+    sh = make_sequence_header(64, 64)
+
+    def single_p_frame():
+        slots = [frames[0]] * 8
+        enc = TpuInterFrameEncoder(sh, make_inter_frame_header(sh, 100),
+                                   slots, ref_list=(c.LAST_FRAME,))
+        enc.encode_frame(frames[1])
+
+    calls = {
+        "twopass": lambda: encode_twopass_ivf(os.devnull, frames, 64, 64),
+        "lossless": lambda: encode_lossless_ivf(os.devnull, frames, 64, 64),
+        "all_intra_batch": lambda: encode_tpu_ivf(os.devnull, frames, 64,
+                                                  64),
+        "device_rdo": lambda: TpuRdoAllIntraEncoder(
+            sh, make_lossy_frame_header(sh, 100))._run_device_rdo(),
+        "single_p_frame": single_p_frame,
+    }
+    with pytest.raises(NotImplementedError, match=item):
+        calls[what]()

@@ -102,7 +102,7 @@ def wave_pair():
     lam = 0.12 * 30.0 ** 2
     ref = WJ.WavefrontEncoder(100, lam)
     res_j = ref.encode_frame([y, u, v])
-    port = WT.WavefrontEncoder(100, lam)
+    port = WT.WavefrontEncoder(100, lam, device="cpu")
     res_t = port.encode_frame([y, u, v])
     return (res_j, ref), (res_t, port)
 
@@ -131,7 +131,8 @@ def test_key_frame_payload_and_recon_match_jax():
     sh = make_sequence_header(W, H)
     out = []
     for cls in (TpuAllIntraEncoder, TorchAllIntraEncoder):
-        enc = cls(sh, make_lossy_frame_header(sh, 100))
+        kw = dict(device="cpu") if cls is TorchAllIntraEncoder else {}
+        enc = cls(sh, make_lossy_frame_header(sh, 100), **kw)
         out.append((enc.encode_frame(planes),
                     [p.copy() for p in enc.recon]))
     assert out[0][0] == out[1][0]
