@@ -35,7 +35,7 @@ from .. import resolve_device
 from ..bitstream import constants as c
 from ..bitstream import headers as H
 from ..common.loopfilter import pick_filter_level_from_q
-from ..ops.inter import DeviceChainEncoder
+from ..ops.inter import DeviceChainEncoder, to_device
 from ..runtime import native_available
 from ..utils.profiler import profile
 from .encoder import make_sequence_header
@@ -45,16 +45,20 @@ from .ratectrl import MODE_Q, RateControl, RateControlConfig
 
 
 class GopEncoder:
-    """Rate-controlled GOP encoder on the batched device path
-    (use_tpu=True, the reference's name for it), its device work on
-    `device`: the card when None, and an error when there is none.
+    """Rate-controlled GOP encoder, its device work on `device`: the card
+    when None, and an error when there is none.
 
-    Not ported yet (each raises): the host RD path (use_tpu=False, which
-    needs TPL and the temporal filter), TPL and the ARF temporal filter
-    themselves (ROADMAP Queue 1 item 8), the device-RDO KEY for frames up
-    to 720x576 (item 11), frame-parallel groups (item 16) and single P
-    frames outside a chain (GF groups under 3 frames, item 5).  cpu_used 8
-    and 9 turn TPL and TF off and keep the wavefront KEY."""
+    use_tpu=True (the reference's name for it) is the batched device
+    path: wavefront KEY, then per GF group TPL (encoder/tpl), the ARF
+    temporal filter (encoder/temporal_filter) and the ARF and P chain,
+    all from one upload of the group's source planes.  use_tpu=False is
+    the host RD path; of it only TPL and the temporal filter run on the
+    device.
+
+    Not ported yet (each raises): the device-RDO KEY for frames up to
+    720x576 at cpu_used <= 6 or unset (ROADMAP Queue 1 item 11),
+    frame-parallel groups (item 16) and, on the device path, single P
+    frames outside a chain (GF groups under 3 frames, item 5)."""
 
     def __init__(self, width: int, height: int, device=None,
                  rc_cfg: RateControlConfig | None = None,
@@ -161,22 +165,12 @@ class GopEncoder:
         # S-frame cadence (aom_encoder.h:785 sframe_dist): every Nth
         # display frame in low-delay coding becomes a SWITCH_FRAME
         self.sframe_dist = sframe_dist
-        if not self.use_tpu:
-            raise ValueError("the port runs the device path "
-                             "(use_tpu=True); the host GOP path needs TPL "
-                             "and the temporal filter, which are not ported "
-                             "yet (ROADMAP Queue 1 item 8)")
-        if self.enable_tpl or self.enable_tf:
-            raise NotImplementedError(
-                "TPL and the temporal filter are not ported yet (ROADMAP "
-                "Queue 1 item 8); use cpu_used 8 or 9, or pass "
-                "enable_tpl=False, enable_tf=False")
         if self.frame_parallel:
             raise NotImplementedError(
                 "frame-parallel GF groups are not ported yet (ROADMAP "
                 "Queue 1 item 16)")
-        if not (self.sh.max_frame_width % 16 == 0
-                and self.sh.max_frame_height % 16 == 0):
+        if self.use_tpu and not (self.sh.max_frame_width % 16 == 0
+                                 and self.sh.max_frame_height % 16 == 0):
             raise ValueError("the device path needs width and height that "
                              "are multiples of 16")
         self.device = resolve_device(device)
@@ -559,7 +553,8 @@ class GopEncoder:
         """Encode all frames; returns one payload per display frame."""
         n = len(frames)
         for item in self._build_schedule(n):
-            if item[0] == "gf" and not (self.use_arf and item[2] >= 3):
+            if (self.use_tpu and item[0] == "gf"
+                    and not (self.use_arf and item[2] >= 3)):
                 raise NotImplementedError(
                     "GF groups shorter than 3 frames (and use_arf=False) "
                     "code single P frames through DeviceInterEncoder, which "
@@ -617,25 +612,45 @@ class GopEncoder:
         L = len(group)
         q_arf = self._q("arf", base_idx + L - 1)
 
-        # The chain encoder uploads each source frame once per call
-        # (ops.inter.to_device_state); the reference's per-group device
-        # source cache served TPL and the temporal filter as well.
+        # device source cache: upload each source frame once; TPL, the
+        # temporal filter and the chain encode all reuse the
+        # device-resident planes
+        dev_group = group
+        use_dev_cache = (self.use_tpu and group[0][0].dtype == np.uint8
+                         and self.sh.max_frame_width % 16 == 0
+                         and self.sh.max_frame_height % 16 == 0)
+        if use_dev_cache:
+            with profile("gop/upload"):
+                dev_group = [tuple(to_device(p, self.device) for p in f)
+                             for f in group]
+        tf_group = dev_group if use_dev_cache else group
 
         # TPL dependency pass (av1_tpl_setup_stats analog): deepen the
         # ARF q boost by how much the group references it, and build
         # per-frame rdmult maps
         tpl_maps = [None] * L
         if self.enable_tpl and L >= 2:
-            raise NotImplementedError(
-                "TPL (encoder/tpl) is not ported yet (ROADMAP Queue 1 "
-                "item 8)")
+            from .tpl import tpl_gf_group, tpl_q_offset
+            with profile("gop/tpl"):
+                importance, tpl_maps = tpl_gf_group(dev_group, L - 1,
+                                                    device=self.device)
+            # bounded ARF boost (av1_get_arf_q analog): the TPL offset
+            # is capped and the ARF never codes finer than the KEY
+            # anchor + margin — an unbounded boost makes the ARF
+            # re-spend the whole key budget at near-lossless q
+            dq = max(-16, tpl_q_offset(importance[L - 1], q_arf))
+            q_arf = max(self.rc.cfg.best_q, q_arf + dq,
+                        self.rc.last_q_key + 4)
 
-        # ALTREF temporal filtering (av1_temporal_filter analog)
+        # ALTREF temporal filtering (av1_temporal_filter analog);
+        # on the device path the group's source planes were uploaded once
+        # (tf_group above) and the filter consumes the device copies
         arf_src = group[L - 1]
         if self.enable_tf and L >= 3:
-            raise NotImplementedError(
-                "the ARF temporal filter (encoder/temporal_filter) is not "
-                "ported yet (ROADMAP Queue 1 item 8)")
+            from .temporal_filter import temporal_filter
+            with profile("gop/temporal_filter"):
+                arf_src = temporal_filter(tf_group, L - 1, q_arf,
+                                          device=self.device)
 
         dev_ok = (self.use_tpu
                   and self.sh.max_frame_width % 16 == 0
@@ -676,7 +691,15 @@ class GopEncoder:
                 and self.sh.max_frame_width % 16 == 0
                 and self.sh.max_frame_height % 16 == 0):
             qs = [self._q("inter", base_idx + j) for j in range(L - 1)]
-            # (the reference's per-frame TPL q offset goes here: item 8)
+            if self.enable_tpl and L >= 2:
+                # per-frame TPL q offset (av1_tpl_get_qstep_ratio analog
+                # applied to the P chain, halved: a P frame that the
+                # rest of the group leans on gets a finer quantizer)
+                from .tpl import tpl_q_offset
+                for j in range(L - 1):
+                    dq = max(-8, tpl_q_offset(importance[j], qs[j]) // 2)
+                    qs[j] = max(self.rc.cfg.best_q, qs[j] + dq,
+                                self.rc.last_q_key + 4)
             # in-loop deblock levels for the device program: the same
             # q-derived LPF_PICK_FROM_Q estimate the headers will carry
             lfs = [pick_filter_level_from_q(q, frame_is_key=False,
@@ -690,7 +713,7 @@ class GopEncoder:
             with profile("gop/chain_device"):
                 raws, recons = DeviceChainEncoder(
                     self.device).encode_chain(
-                    group[:L - 1], qs, self.slots[self.last_slot],
+                    dev_group[:L - 1], qs, self.slots[self.last_slot],
                     self.slots[self.arf_slot], lf_levels=lfs,
                     sharpness=self.lf_sharpness)
             chain = (qs, raws, recons)

@@ -46,10 +46,11 @@
 //     most 64 * 1020^2 = 66.6e6; larger inputs wrap modulo 2^32 exactly
 //     as the plain version's int32 sum does.
 //
-// avl_ssd_surface — the (src_blk, win) form, for callers that already
-// hold windows (TPL, the temporal filter): one thread block per
-// source block, window and source in shared memory as int32, one thread
-// per surface entry.  Any bsz and radius.
+// avl_ssd_surface — the (src_blk, win) form the Pallas kernels took, for
+// callers that already hold windows (none on the encoder's path: TPL and
+// the temporal filter pad their reference by the radius and call the plane
+// form): one thread block per source block, window and source in shared
+// memory as int32, one thread per surface entry.  Any bsz and radius.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -6,7 +6,8 @@ path runs: _p_frame_core, _eval_merge_level, _p_chain_fn and
 DeviceChainEncoder).  Every 16x16 block of a P frame is searched, motion
 compensated, transform coded and reconstructed in one batched pass: a
 two-scale exhaustive full-pel search (kernel K2, which cuts its windows
-from the padded reference plane itself), half/quarter/eighth-pel refinement
+from the padded reference plane itself, and K1's fused form for the 3x3
+refine of the long-range candidate), half/quarter/eighth-pel refinement
 through the 8-tap interpolator (K3, which reads its regions from the
 plane), an MV consensus snap, a frame-level interp-filter
 pick, residual coding with RD tail dropout (K4), an RD skip decision and
@@ -36,8 +37,8 @@ from ..common import interpred as IP
 from ..common import quant as Q
 
 from .deblock import deblock_leafmask
-from .kernels import (convolve_8tap_plane, gather_windows,
-                      ssd_surface_plane, stride_windows)
+from .kernels import (block_ssd_at, convolve_8tap_plane, ssd_surface_plane,
+                      stride_windows)
 from .txfm import fwd_txfm2d_batched, inv_txfm2d_add_batched
 from .wavefront import est_bits, log2_f32, pq_array, quantize
 
@@ -180,13 +181,12 @@ def _half_res(plane):
         .reshape(h2, 2, w2, 2).sum((1, 3)).to(torch.int32)
 
 
-def _fullpel_search(src_y, sy_blk, refp_y, refp_y2, y0, x0, nby, nbx,
-                    bsz=16):
+def _fullpel_search(src_y, refp_y, refp_y2, y0, x0, nby, nbx, bsz=16):
     """Two-scale exhaustive full-pel search for one reference ->
     (best_dy, best_dx, cost) in full-pel units, range +-32.  src_y is the
-    uint8 source plane and sy_blk its (B, bsz, bsz) int32 tiles."""
+    uint8 source plane, whose (nby, nbx) grid of bsz blocks is searched."""
     r = FULLPEL_RADIUS
-    dev = sy_blk.device
+    dev = src_y.device
     # full-res surface: +-16
     ssd0 = ssd_surface_plane(src_y, refp_y, nby, nbx, bsz, r, PADR - r,
                              PADR - r)
@@ -200,19 +200,24 @@ def _fullpel_search(src_y, sy_blk, refp_y, refp_y2, y0, x0, nby, nbx,
         _half_res(src_y), refp_y2, nby, nbx, bsz // 2, r, PADR // 2 - r,
         PADR // 2 - r))
     dy1, dx1 = (iy1 - r) * 2, (ix1 - r) * 2
-    # refine the half-res candidate at full res (3x3)
-    syf = sy_blk.to(torch.float32)
-    cands = [(c0, dy0, dx0)]
-    for oy in (-1, 0, 1):
-        for ox in (-1, 0, 1):
-            ny = (dy1 + oy).clamp(-2 * r, 2 * r)
-            nx = (dx1 + ox).clamp(-2 * r, 2 * r)
-            blk = gather_windows(refp_y, (PADR + y0 + ny).to(torch.int32),
-                                 (PADR + x0 + nx).to(torch.int32), bsz, bsz)
-            d = blk.to(torch.float32) - syf
-            cands.append(((d * d).sum((1, 2)) + _mv_bias(ny, nx), ny, nx))
-    cost, dy, dx = _pick(cands)
-    return dy, dx, cost
+    # refine the half-res candidate at full res (3x3): the nine SSDs come
+    # from one fused K1 launch; the sums are exact integers below 2^24, so
+    # their float32 values are the reference's float sums bit for bit
+    off = torch.tensor([-1, 0, 1], device=dev)
+    ny = (dy1[:, None] + off.repeat_interleave(3)).clamp(-2 * r, 2 * r)
+    nx = (dx1[:, None] + off.repeat(3)).clamp(-2 * r, 2 * r)
+    ssd = block_ssd_at(src_y, refp_y,
+                       (PADR + y0[:, None] + ny).to(torch.int32),
+                       (PADR + x0[:, None] + nx).to(torch.int32), nby, nbx,
+                       bsz)
+    # candidate order decides ties: the full-res winner first, then the
+    # neighbourhood row by row
+    cost = torch.cat([c0[:, None],
+                      ssd.to(torch.float32) + _mv_bias(ny, nx)], 1)
+    bi = cost.argmin(1, keepdim=True)
+    return (torch.cat([dy0[:, None], ny], 1).gather(1, bi)[:, 0],
+            torch.cat([dx0[:, None], nx], 1).gather(1, bi)[:, 0],
+            cost.gather(1, bi)[:, 0])
 
 
 def _subpel_refine(sy_blk, refp_y, y0, x0, bsz, best_dy, best_dx, W, H,
@@ -410,8 +415,8 @@ def p_frame(src_y, src_u, src_v, refs_y, refs_u, refs_v, refs_y2, pq_y,
     # --- per-ref search ---
     per_ref = []
     for ri in range(n_refs):
-        fdy, fdx, _ = _fullpel_search(src_y, sy_blk, refs_y[ri],
-                                      refs_y2[ri], y0, x0, nby, nbx)
+        fdy, fdx, _ = _fullpel_search(src_y, refs_y[ri], refs_y2[ri], y0,
+                                      x0, nby, nbx)
         mv_r, mv_c, pred, _ = _subpel_refine(sy_blk, refs_y[ri], y0, x0,
                                              16, fdy, fdx, W, H, filt8, hp)
         per_ref.append((_ssd_sum(pred, sy_blk), mv_r, mv_c, pred))
@@ -569,6 +574,21 @@ def _edge_pad(p, n):
     return p[rows[:, None], cols[None, :]]
 
 
+def block_cost_volume(cur, ref, block: int, radius: int):
+    """Full-pel SSD surfaces of every (block, block) tile of `cur` against
+    `ref` at offsets within +-radius (the reference edge-padded by radius):
+    (Hb*Wb, 2r+1, 2r+1) float32.  cur and ref are integer planes of one
+    shape whose sides are multiples of block: uint8 as they are, deeper
+    samples as int32 (exact while block^2 * peak^2 < 2^31, i.e. to 10
+    bits at block 16).  The motion pass of TPL and of the temporal filter;
+    K2's plane form."""
+    if cur.dtype != torch.uint8 or ref.dtype != torch.uint8:
+        cur, ref = cur.to(torch.int32), ref.to(torch.int32)
+    H, W = cur.shape
+    return ssd_surface_plane(cur, _edge_pad(ref, radius), H // block,
+                             W // block, block, radius, 0, 0)
+
+
 def pad_ref(y, u, v):
     """Reference prep: PADR edge padding + the half-res luma sums (the
     two-scale search pyramid)."""
@@ -588,13 +608,22 @@ def _leaf_ids(lvl16):
     return torch.where(lvl16 == 2, id64, torch.where(lvl16 == 1, id32, bi))
 
 
+def to_device(plane, device):
+    """A numpy plane, or a tensor that may already lie on `device`, as a
+    contiguous tensor there."""
+    if isinstance(plane, torch.Tensor):
+        return plane.to(device).contiguous()
+    return torch.as_tensor(np.ascontiguousarray(plane), device=device)
+
+
 def to_device_state(planes_list, qindexes, device):
     """Upload a group's per-frame state once: each (y, u, v) of
-    planes_list as uint8 tensors, and per frame qindex its quantizer
-    arrays (three (5, 2) int32 tensors), RD lambda (float32 0-d tensor)
-    and high-precision-MV flag."""
+    planes_list (numpy, or tensors already on the device) as uint8
+    tensors, and per frame qindex its quantizer arrays (three (5, 2)
+    int32 tensors), RD lambda (float32 0-d tensor) and high-precision-MV
+    flag."""
     def up(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+        return to_device(a, device)
     planes = [tuple(up(p) for p in f) for f in planes_list]
     per_q = []
     for q in qindexes:

@@ -9,18 +9,21 @@ C++ kernel in ops/csrc/, built by ops/build.py and called through ctypes:
   K3 convolve_8tap  — csrc/convolve_8tap.cu   (_conv8_kernel)
   K4 quantize_b_vec — csrc/quantize_b.cu      (_quant_kernel)
 
-K2 and K3 have two entries each.  ssd_surface and convolve_8tap take the
-windows and regions the Pallas kernels took; ssd_surface_plane and
+K1, K2 and K3 have two entries each.  ssd_surface and convolve_8tap take
+the windows and regions the Pallas kernels took; ssd_surface_plane and
 convolve_8tap_plane take the padded reference plane and cut the windows
 and regions themselves, inside the kernel, which is what the motion search
 and motion compensation call (the windows never exist in device memory).
-Both entries of a kernel count under its one name.
+gather_windows copies the windows out; block_ssd_at, which the full-pel
+refine calls, reads them and returns only each block's SSD at each of its
+candidate origins.  Both entries of a kernel count under its one name.
 
 Beside each wrapper sits its plain PyTorch version (integer math, no
 convolution library), which takes the same tensors on any device.  A
 wrapper runs the plain version only when its tensors lie on the CPU; on
 CUDA tensors it launches the kernel, or raises.  Each launch adds one to
-LAUNCHES[name], so a run can show which kernels its path went through.
+LAUNCHES[name] (and to ENTRY_LAUNCHES under the C entry's name), so a run
+can show which kernels, and which of their entries, its path went through.
 What bounds each kernel on the H100 is noted at the top of its source.
 """
 
@@ -32,12 +35,17 @@ import torch
 
 LAUNCHES = {"gather_windows": 0, "ssd_surface": 0, "convolve_8tap": 0,
             "quantize_b_vec": 0}
+#: the same launches by the C entry they went through (a kernel's two
+#: entries apart), filled as entries are used
+ENTRY_LAUNCHES: dict[str, int] = {}
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
 _SIGNATURES = {
     "avl_gather_windows": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
                            _INT, _INT, _VP],
+    "avl_block_ssd_at": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
+                         _INT, _INT, _INT, _VP],
     "avl_ssd_surface": [_VP, _VP, _VP, _INT, _INT, _INT, _VP],
     "avl_ssd_surface_plane": [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
                               _INT, _INT, _INT, _INT, _VP],
@@ -53,6 +61,7 @@ _lib = None
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    ENTRY_LAUNCHES.clear()
 
 
 def _kernel(name: str):
@@ -92,6 +101,7 @@ def _launch(name: str, fn: str, *args) -> None:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{rc}")
     LAUNCHES[name] += 1
+    ENTRY_LAUNCHES[fn] = ENTRY_LAUNCHES.get(fn, 0) + 1
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +130,7 @@ def gather_windows(plane, base_r, base_c, wr: int, wc: int):
              and base_r.dtype == torch.int32
              and base_c.dtype == torch.int32, name,
              "base_r/base_c must be int32 (B,) tensors")
+    _require(wr > 0 and wc > 0, name, "wr and wc must be positive")
     if _on_cpu(name, plane, base_r, base_c):
         return gather_windows_plain(plane, base_r, base_c, wr, wc)
     plane = plane.contiguous()
@@ -132,6 +143,57 @@ def gather_windows(plane, base_r, base_c, wr: int, wc: int):
                 plane.data_ptr(), base_r.data_ptr(), base_c.data_ptr(), B,
                 plane.shape[0], plane.shape[1], wr, wc,
                 plane.element_size())
+    return out
+
+
+def block_ssd_at_plain(src, ref, base_r, base_c, nby: int, nbx: int,
+                       bsz: int):
+    """Integer SSD of block b of the source grid (block (by, bx) is
+    src[by*bsz:, bx*bsz:]) against the (bsz, bsz) window of ref at each of
+    its candidate origins (base_r[b, k], base_c[b, k]), window indices
+    clamped to ref as gather_windows clamps them -> (B, C) int32."""
+    blk = stride_windows(src, 0, 0, nby, nbx, bsz, bsz).to(torch.int32)
+    out = []
+    for k in range(base_r.shape[1]):
+        win = gather_windows_plain(ref, base_r[:, k], base_c[:, k], bsz, bsz)
+        d = win.to(torch.int32) - blk
+        out.append((d * d).sum((1, 2), dtype=torch.int32))
+    return torch.stack(out, 1)
+
+
+def block_ssd_at(src, ref, base_r, base_c, nby: int, nbx: int, bsz: int):
+    """K1 fused with the SSD that follows it: uint8 source plane
+    (>= nby*bsz, >= nbx*bsz), uint8 reference plane (H, W), int32 origins
+    (nby*nbx, C) -> (nby*nbx, C) int32, exact (at most bsz*bsz*255^2).
+    One launch where the caller would gather C windows per block and
+    subtract, square and sum each.  bsz is 8 or 16 on the card."""
+    name = "gather_windows"
+    B = nby * nbx
+    _require(src.dim() == 2 and ref.dim() == 2
+             and src.dtype == torch.uint8 and ref.dtype == torch.uint8, name,
+             "block_ssd_at: src and ref must be 2-D uint8 planes")
+    _require(nby > 0 and nbx > 0 and src.shape[0] >= nby * bsz
+             and src.shape[1] >= nbx * bsz, name,
+             f"block_ssd_at: src {tuple(src.shape)} does not hold "
+             f"{nby}x{nbx} blocks of {bsz}")
+    _require(base_r.dim() == 2 and base_r.shape[0] == B
+             and base_r.shape == base_c.shape
+             and base_r.dtype == torch.int32
+             and base_c.dtype == torch.int32, name,
+             f"block_ssd_at: base_r/base_c must be int32 ({B}, C) tensors")
+    if _on_cpu(name, src, ref, base_r, base_c):
+        return block_ssd_at_plain(src, ref, base_r, base_c, nby, nbx, bsz)
+    _require(bsz in (8, 16), name, "block_ssd_at takes bsz 8 or 16")
+    src = src.contiguous()
+    ref = ref.contiguous()
+    base_r = base_r.contiguous()
+    base_c = base_c.contiguous()
+    C = base_r.shape[1]
+    out = torch.empty((B, C), dtype=torch.int32, device=ref.device)
+    if C:
+        _launch(name, "avl_block_ssd_at", out.data_ptr(), src.data_ptr(),
+                ref.data_ptr(), base_r.data_ptr(), base_c.data_ptr(), B, C,
+                nbx, bsz, src.shape[1], ref.shape[0], ref.shape[1])
     return out
 
 

@@ -11,20 +11,28 @@
    bound (the least time the card could take: its bytes at the
    memory rate or its operations at the peak rate, whichever is larger)
    is computed from the case's tensors.
-2. Times the call paths that the plane-form entries of K2 and K3 replaced
-   (cut windows -> int32 -> ssd_surface; gather -> int32 -> convolve_8tap)
-   beside the plane forms, in turns, on the same inputs.
-3. Runs the slice: the 8-frame 1920x1088 inter-GOP encode of the repo's
-   benchmark clip (KEY + a GF group of 7: hidden ARF + 6 chained P
-   frames) with qindex 120, cpu_used 8, CDEF off, with the launch counters
-   reset just before it; every kernel must have launched during it.
-4. Encodes the same configuration at 352x288 and decodes the stream with
-   the port's decoder; the decoder's reference slots must equal the
-   encoder's recon slots byte for byte.
+2. Times the call paths that the plane-form entries of K2 and K3 and the
+   fused form of K1 replaced (cut windows -> int32 -> ssd_surface; gather
+   -> int32 -> convolve_8tap; nine gathers each with its subtract, square
+   and sum) beside the new forms, in turns, on the same inputs.
+3. Runs the slice in two configurations: the 8-frame 1920x1088 inter-GOP
+   encode of the repo's benchmark clip (KEY + a GF group of 7: hidden ARF
+   + 6 chained P frames) with qindex 120 and CDEF off, first at cpu_used 8
+   (TPL and the temporal filter off) and then with cpu_used unset, the
+   repo's default (TPL and the ARF temporal filter on), each with the
+   launch counters reset just before it; every kernel must have launched
+   during each, and TPL and the filter must have gone through the plane
+   form of K2 and the gather form of K1 only.
+4. Encodes both configurations at a smaller size (352x288 at cpu_used 8;
+   768x576 for the default, the smallest 4:3 size whose KEY takes the
+   wavefront path as it does at 1080p) and decodes the streams with the
+   port's decoder; the decoder's reference slots must equal the encoder's
+   recon slots byte for byte.
 
-With --warm N the slice is run N more times and the stage medians are
-printed; with --profile one more slice runs under torch.profiler and the
-device time of each hand kernel and the device-busy share are printed.
+With --warm N each configuration's slice is run N more times and the
+stage medians are printed; with --profile one more default-configuration
+slice runs under torch.profiler and the device time of each hand kernel
+and the device-busy share are printed.
 
 Only the port is imported: jax and the JAX package are blocked.  Prints the
 card's name and power limit, one JSON line with each kernel's record, and
@@ -45,20 +53,31 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 W, H, N_FRAMES, QINDEX = 1920, 1088, 8, 120
 PADR = 64
-KW = dict(qindex=QINDEX, gf_length=8, use_tpu=True, enable_cdef=False,
-          cpu_used=8)
+KW_DEFAULT = dict(qindex=QINDEX, gf_length=8, use_tpu=True,
+                  enable_cdef=False)
+KW_CPU8 = dict(KW_DEFAULT, cpu_used=8)
 PK = "aom_av1_lavish_tpu/ops/pallas_kernels.py"
 CSRC = "aom_av1_lavish_torch/ops/csrc"
-#: name -> (source, the TPU kernel it replaces)
+#: record name -> (source, the TPU kernel it replaces, the LAUNCHES key its
+#: launches count under, the key its own launches are read from).  K1's two
+#: entries have a record each (block_ssd_at is its fused form): both count
+#: under LAUNCHES["gather_windows"] and are told apart by ENTRY_LAUNCHES
 KERNELS = {
-    "gather_windows": (f"{CSRC}/gather_windows.cu", f"{PK}:249"),
-    "ssd_surface": (f"{CSRC}/ssd_surface.cu", f"{PK}:143"),
-    "convolve_8tap": (f"{CSRC}/convolve_8tap.cu", f"{PK}:419"),
-    "quantize_b_vec": (f"{CSRC}/quantize_b.cu", f"{PK}:343"),
+    "gather_windows": (f"{CSRC}/gather_windows.cu", f"{PK}:249",
+                       "gather_windows", "avl_gather_windows"),
+    "block_ssd_at": (f"{CSRC}/gather_windows.cu", f"{PK}:249",
+                     "gather_windows", "avl_block_ssd_at"),
+    "ssd_surface": (f"{CSRC}/ssd_surface.cu", f"{PK}:143", "ssd_surface",
+                    "ssd_surface"),
+    "convolve_8tap": (f"{CSRC}/convolve_8tap.cu", f"{PK}:419",
+                      "convolve_8tap", "convolve_8tap"),
+    "quantize_b_vec": (f"{CSRC}/quantize_b.cu", f"{PK}:343",
+                       "quantize_b_vec", "quantize_b_vec"),
 }
 #: the device function(s) of each kernel, as a profiler names them
 DEVICE_FUNCS = {
-    "gather_windows": ("gather_windows_kernel",),
+    "gather_windows": ("gather_windows_kernel", "gather_flat_kernel",
+                       "block_ssd_at_kernel"),
     "ssd_surface": ("ssd_plane_kernel", "ssd_surface_kernel"),
     "convolve_8tap": ("conv8_plane_kernel", "convolve_8tap_kernel"),
     "quantize_b_vec": ("quantize_b_kernel",),
@@ -183,7 +202,15 @@ def _cases(dev):
                       f"grid{gy}x{gx} unaligned",
                       (src, ref, gy, gx, bsz, r, oy, ox),
                       ssd_ops(gy * gx, bsz, r, np.dtype(dtype).name)))
-    # K2 from windows (the form TPL and the temporal filter will call)
+    # K2 from planes at the shape of TPL and the temporal filter: bsz 16,
+    # r 8, the reference edge-padded by 8
+    src = t(rng.integers(0, 256, (H, W)).astype(np.uint8))
+    ref = t(rng.integers(0, 256, (H + 16, W + 16)).astype(np.uint8))
+    cases.append(("ssd_surface", "ssd_surface_plane",
+                  f"plane uint8 bsz16 r8 pad8 B{B}",
+                  (src, ref, nby, nbx, 16, 8, 0, 0),
+                  ssd_ops(B, 16, 8, "uint8")))
+    # K2 from windows (the entry the Pallas kernels had)
     for bsz, r, lo, hi in ((16, 16, 0, 256), (16, 16, 240, 256),
                            (8, 16, 0, 1021), (8, 16, 960, 1021),
                            (16, 8, 0, 256)):
@@ -234,8 +261,10 @@ def _cases(dev):
         cases.append(("convolve_8tap", "convolve_8tap",
                       f"regions {n}x{n} B{nb}", (region, *taps(nb), n, n),
                       conv_ops(nb, n, "int32")))
-    # K1: full-pel refine blocks, MC regions, chroma regions; uint8 and
-    # int32 planes of a PADR-padded 1080p reference
+    # K1, gather form: the temporal filter's aligned luma blocks, MC
+    # regions, chroma regions; uint8 and int32 planes of a PADR-padded
+    # 1080p reference; then the filter's 8x8 chroma blocks of two
+    # neighbours, and origins that hit the clamp on every side
     for dtype, wn, nb in ((np.uint8, 16, 8160), (np.uint8, 23, 8160),
                           (np.uint8, 15, 8160), (np.uint8, 39, 2040),
                           (np.uint8, 71, 510), (np.int32, 25, 8160)):
@@ -245,6 +274,68 @@ def _cases(dev):
         cases.append(("gather_windows", "gather_windows",
                       f"{np.dtype(dtype).name} {wn}x{wn} B{nb}",
                       (pl, br, bc, wn, wn), (0, "uint8")))
+    pl = t(rng.integers(0, 256, (H // 2 + 16, W // 2 + 16)).astype(np.uint8))
+    br = t(rng.integers(0, H // 2 + 8, 2 * B).astype(np.int32))
+    bc = t(rng.integers(0, W // 2 + 8, 2 * B).astype(np.int32))
+    cases.append(("gather_windows", "gather_windows",
+                  f"uint8 8x8 B{2 * B} (chroma, two neighbours)",
+                  (pl, br, bc, 8, 8), (0, "uint8")))
+    for dtype, wn in ((np.uint8, 16), (np.uint8, 23), (np.int32, 9)):
+        pl = t(rng.integers(0, 256, (90, 117)).astype(dtype))
+        br = t(rng.integers(-wn - 20, 90 + 20, 301).astype(np.int32))
+        bc = t(rng.integers(-wn - 20, 117 + 20, 301).astype(np.int32))
+        cases.append(("gather_windows", "gather_windows",
+                      f"{np.dtype(dtype).name} {wn}x{wn} B301 clamped "
+                      "origins", (pl, br, bc, wn, wn), (0, "uint8")))
+
+    # K1, fused form: SSD of every source block at C candidate origins in
+    # the padded reference.  3x3 neighbourhoods around a centre within the
+    # search range (the refine's shape) at bsz 16 and 8, bright pixels,
+    # candidates scattered over the plane, and neighbourhoods around
+    # centres on and off a small plane whose width is no multiple of 16
+    def at_ops(n_blk, n_cand, bsz):
+        return 3 * n_blk * n_cand * bsz * bsz, "uint8"
+
+    off = np.array([-1, 0, 1])
+    oy9, ox9 = np.repeat(off, 3), np.tile(off, 3)
+    for bsz, lo, hi in ((16, 0, 256), (8, 0, 256), (16, 240, 256)):
+        src = t(rng.integers(lo, hi, (nby * bsz, nbx * bsz)).astype(np.uint8))
+        ref = t(rng.integers(lo, hi, (nby * bsz + 2 * PADR,
+                                      nbx * bsz + 2 * PADR)).astype(np.uint8))
+        y0 = np.repeat(np.arange(nby), nbx) * bsz
+        x0 = np.tile(np.arange(nbx), nby) * bsz
+        cy = PADR + y0 + rng.integers(-32, 33, B)
+        cx = PADR + x0 + rng.integers(-32, 33, B)
+        cases.append(("block_ssd_at", "block_ssd_at",
+                      f"bsz{bsz} 3x3 px{lo}..{hi - 1} B{B}",
+                      (src, ref, t((cy[:, None] + oy9).astype(np.int32)),
+                       t((cx[:, None] + ox9).astype(np.int32)), nby, nbx,
+                       bsz), at_ops(B, 9, bsz)))
+    src = t(rng.integers(0, 256, (H, W)).astype(np.uint8))
+    ref = t(rng.integers(0, 256, (H + 2 * PADR, W + 2 * PADR))
+            .astype(np.uint8))
+    cases.append(("block_ssd_at", "block_ssd_at",
+                  f"bsz16 9 scattered candidates B{B}",
+                  (src, ref,
+                   t(rng.integers(0, H + 2 * PADR - 16, (B, 9))
+                     .astype(np.int32)),
+                   t(rng.integers(0, W + 2 * PADR - 16, (B, 9))
+                     .astype(np.int32)), nby, nbx, 16), at_ops(B, 9, 16)))
+    for bsz, n_cand in ((16, 9), (8, 9), (16, 5), (8, 35)):
+        gy, gx = 5, 7
+        src = t(rng.integers(0, 256, (gy * bsz + 3, gx * bsz + 5))
+                .astype(np.uint8))
+        ref = t(rng.integers(0, 256, (90, 117)).astype(np.uint8))
+        cy = rng.integers(-bsz - 20, 90 + 20, gy * gx)
+        cx = rng.integers(-bsz - 20, 117 + 20, gy * gx)
+        dy = rng.integers(-2, 3, (gy * gx, n_cand))
+        dx = rng.integers(-2, 3, (gy * gx, n_cand))
+        cases.append(("block_ssd_at", "block_ssd_at",
+                      f"bsz{bsz} C{n_cand} clamped origins unaligned "
+                      f"B{gy * gx}",
+                      (src, ref, t((cy[:, None] + dy).astype(np.int32)),
+                       t((cx[:, None] + dx).astype(np.int32)), gy, gx, bsz),
+                      at_ops(gy * gx, n_cand, bsz)))
     # K4: real quantizer params (qindex 120) and random ones that make the
     # int32 products wrap, at n = 64, 256, 1024
     pq = pq_array(Q.build_plane_quant(QINDEX, 0, 0))
@@ -295,7 +386,7 @@ def phase_kernels(dev) -> dict:
                        max_abs_err=0.0, ms=None, plain_ms=None,
                        bound_ms=None, bound_by=None, library_ms=None,
                        graph_ms=None)
-            for name, (src, rep) in KERNELS.items()}
+            for name, (src, rep, _, _) in KERNELS.items()}
     log(f"{'kernel':<15} {'entry and shape':<47} {'max_err':>7} "
         f"{'kernel ms':>10} {'graph ms':>9} {'plain ms':>10} "
         f"{'bound ms':>9} by")
@@ -336,10 +427,11 @@ def phase_kernels(dev) -> dict:
 
 
 def phase_before_after(dev) -> None:
-    """The call paths of the first slice beside the plane-form entries
-    that replaced them, on the same 1080p inputs, timed in turns (before,
-    after, after, before) and reported as the mean of each pair, and once
-    each from a CUDA graph (the device's time without the host's)."""
+    """The call paths of the earlier slices beside the entries that
+    replaced them (the plane forms of K2 and K3, the fused form of K1), on
+    the same 1080p inputs, timed in turns (before, after, after, before)
+    and reported as the mean of each pair, and once each from a CUDA graph
+    (the device's time without the host's)."""
     import numpy as np
     import torch
 
@@ -392,13 +484,39 @@ def phase_before_after(dev) -> None:
     def k3_after():
         return K.convolve_8tap_plane(ref, br, bc, kx, ky, 16, 16)
 
+    # the full-pel refine: a 3x3 neighbourhood of origins per block
+    off = torch.tensor([-1, 0, 1], device=dev)
+    y0 = torch.arange(nby, device=dev).repeat_interleave(nbx) * 16
+    x0 = torch.arange(nbx, device=dev).repeat(nby) * 16
+    ny = (PADR + y0 + t(rng.integers(-32, 33, B)))[:, None] \
+        + off.repeat_interleave(3)
+    nx = (PADR + x0 + t(rng.integers(-32, 33, B)))[:, None] + off.repeat(3)
+    ny, nx = ny.to(torch.int32), nx.to(torch.int32)
+    ny_k = [ny[:, k].contiguous() for k in range(9)]
+    nx_k = [nx[:, k].contiguous() for k in range(9)]
+    syf = src_blk.to(torch.float32)
+
+    def k1_before():
+        out = []
+        for k in range(9):
+            blk = K.gather_windows(ref, ny_k[k], nx_k[k], 16, 16)
+            d = blk.to(torch.float32) - syf
+            out.append((d * d).sum((1, 2)))
+        return torch.stack(out, 1)
+
+    def k1_after():
+        return K.block_ssd_at(src, ref, ny, nx, nby, nbx, 16) \
+            .to(torch.float32)
+
     for label, before, after in (
             ("K2 full res: windows -> int32 -> ssd_surface | "
              "ssd_surface_plane (uint8, bsz16 r16)", k2_before, k2_after),
             ("K2 half res: windows -> ssd_surface | ssd_surface_plane "
              "(int32, bsz8 r16)", k2h_before, k2h_after),
             ("K3 16x16: gather -> int32 -> convolve_8tap | "
-             "convolve_8tap_plane", k3_before, k3_after)):
+             "convolve_8tap_plane", k3_before, k3_after),
+            ("K1 refine 3x3: 9 x (gather_windows, float, subtract, square, "
+             "sum) | block_ssd_at", k1_before, k1_after)):
         if not torch.equal(before(), after()):
             raise AssertionError(f"{label}: the two call paths differ")
         b0 = cuda_ms(before)
@@ -411,9 +529,10 @@ def phase_before_after(dev) -> None:
             f"{graph_ms(after):.4f} ms")
 
 
-def run_slice(dev, frames):
-    """One 1080p slice -> (encoder, payloads, seconds, launches, stage
-    seconds), the launch counters set to 0 just before it."""
+def run_slice(dev, frames, kw):
+    """One 1080p slice in configuration `kw` -> (encoder, payloads,
+    seconds, launches by kernel and by C entry, stage seconds), the launch
+    counters set to 0 just before it."""
     import torch
 
     from aom_av1_lavish_torch.encoder.gop import TorchGopEncoder
@@ -425,28 +544,57 @@ def run_slice(dev, frames):
     torch.cuda.synchronize()
     K.reset_launches()
     t0 = time.perf_counter()
-    enc = TorchGopEncoder(W, H, device=dev, **KW)
+    enc = TorchGopEncoder(W, H, device=dev, **kw)
     payloads = enc.encode_sequence(frames)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
+    launches = dict(K.LAUNCHES, **K.ENTRY_LAUNCHES)
     stages = profiler.times()
     profiler.enable(False)
     return enc, payloads, secs, launches, stages
 
 
-def phase_slice(dev, frames) -> dict:
-    """The 1080p slice with the launch counters reset just before it;
-    returns the launch counts."""
+#: launches of one 1080p slice (a KEY and one GF group of 7) that the
+#: slice's structure fixes: per (frame, reference) of the ARF and the six P
+#: frames (1 + 6 * 2 = 13) two K2 surfaces and one fused K1 refine; with TPL
+#: and the filter on, 12 TPL pairs and 2 filter neighbours more of K2 and
+#: 2 neighbours x 3 planes of K1's gather form
+EXPECTED = {
+    "cpu_used 8": {"ssd_surface": 26, "gather_windows": 13,
+                   "avl_block_ssd_at": 13, "avl_gather_windows": 0,
+                   "avl_ssd_surface": 0},
+    "default": {"ssd_surface": 26 + 14, "gather_windows": 13 + 6,
+                "avl_block_ssd_at": 13, "avl_gather_windows": 6,
+                "avl_ssd_surface": 0},
+}
+
+
+def phase_slice(dev, frames, label, kw) -> dict:
+    """The 1080p slice in configuration `kw` with the launch counters
+    reset just before it; returns the launch counts."""
     import numpy as np
 
-    enc, payloads, secs, launches, stages = run_slice(dev, frames)
+    from aom_av1_lavish_torch.ops import kernels as K
+
+    enc, payloads, secs, launches, stages = run_slice(dev, frames, kw)
     if len(payloads) != N_FRAMES or not all(payloads):
         raise AssertionError(f"expected {N_FRAMES} non-empty TUs, got "
                              f"{[len(p) for p in payloads]}")
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in K.LAUNCHES if launches[k] <= 0]
     if missing:
-        raise AssertionError(f"kernels not launched by the slice: {missing}")
+        raise AssertionError(f"kernels not launched by the {label} slice: "
+                             f"{missing}")
+    wrong = {k: (launches.get(k, 0), v) for k, v in EXPECTED[label].items()
+             if launches.get(k, 0) != v}
+    if wrong:
+        raise AssertionError(f"{label} slice: launches (counted, expected) "
+                             f"{wrong}")
+    want = {"gop/key", "gop/arf_encode", "gop/chain_device", "gop/emit"}
+    if enc.enable_tpl and enc.enable_tf:
+        want |= {"gop/tpl", "gop/temporal_filter"}
+    if not want <= set(stages):
+        raise AssertionError(f"{label} slice: stages {sorted(stages)} lack "
+                             f"{sorted(want - set(stages))}")
     # the last P frame's recon (LAST slot) against its source
     rec = enc.slots[enc.arf_slot]
     for p, shape in zip(rec, ((H, W), (H // 2, W // 2), (H // 2, W // 2))):
@@ -457,7 +605,8 @@ def phase_slice(dev, frames) -> dict:
     psnr = 10 * np.log10(255.0 ** 2 / max(mse, 1e-9))
     if not psnr > 30.0:
         raise AssertionError(f"last P frame luma PSNR {psnr:.2f} dB")
-    log(f"slice {W}x{H}: {N_FRAMES} TUs, {sum(map(len, payloads))} bytes, "
+    log(f"slice {label} {W}x{H}: {N_FRAMES} TUs, "
+        f"{sum(map(len, payloads))} bytes, "
         f"{secs:.3f} s, {N_FRAMES / secs:.4f} frames/s, last P luma PSNR "
         f"{psnr:.2f} dB")
     for k, v in sorted(stages.items(), key=lambda kv: -kv[1]):
@@ -466,21 +615,23 @@ def phase_slice(dev, frames) -> dict:
     return launches
 
 
-def phase_warm(dev, frames, n: int) -> None:
-    """n more runs of the slice: median, minimum and maximum of the total
-    and of each GOP stage, and the peak device memory."""
+def phase_warm(dev, frames, label, kw, n: int) -> None:
+    """n more runs of the slice in configuration `kw`: median, minimum and
+    maximum of the total and of each GOP stage, and the peak device
+    memory."""
     import torch
 
     torch.cuda.reset_peak_memory_stats()
     totals, per_stage = [], {}
     for _ in range(n):
-        _, _, secs, _, stages = run_slice(dev, frames)
+        _, _, secs, _, stages = run_slice(dev, frames, kw)
         totals.append(secs)
         for k, v in stages.items():
             if k.startswith("gop/"):
                 per_stage.setdefault(k, []).append(v)
     med = statistics.median(totals)
-    log(f"warm slice n={n}: median {med:.3f} s (min {min(totals):.3f}, max "
+    log(f"warm slice {label} n={n}: median {med:.3f} s (min "
+        f"{min(totals):.3f}, max "
         f"{max(totals):.3f}), {N_FRAMES / med:.4f} frames/s; runs "
         f"{[round(x, 3) for x in totals]}")
     for k, v in sorted(per_stage.items(),
@@ -492,16 +643,17 @@ def phase_warm(dev, frames, n: int) -> None:
         " MiB")
 
 
-def phase_profile(dev, frames) -> None:
-    """One slice under torch.profiler: device time of each hand kernel,
-    of everything else, and the device-busy share of the wall clock."""
+def phase_profile(dev, frames, kw) -> None:
+    """One slice in configuration `kw` under torch.profiler: device time
+    of each hand kernel, of everything else, and the device-busy share of
+    the wall clock."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, _, secs, launches, _ = run_slice(dev, frames)
+        _, _, secs, launches, _ = run_slice(dev, frames, kw)
     hand = {name: [0.0, 0] for name in DEVICE_FUNCS}
     other_us, other_n, copies_us = 0.0, 0, 0.0
     for ev in prof.key_averages():
@@ -539,15 +691,16 @@ def phase_profile(dev, frames) -> None:
         f"{copies_us / 1e3:.2f} ms")
 
 
-def phase_decode(dev, frames, w, h) -> None:
-    """Encode at w x h, decode with the port's decoder: reference slots
-    must equal the encoder's recon slots exactly."""
+def phase_decode(dev, frames, w, h, label, kw) -> None:
+    """Encode at w x h in configuration `kw`, decode with the port's
+    decoder: reference slots must equal the encoder's recon slots
+    exactly."""
     import numpy as np
 
     from aom_av1_lavish_torch.decoder.decoder import decode_frame_obus
     from aom_av1_lavish_torch.encoder.gop import TorchGopEncoder
 
-    enc = TorchGopEncoder(w, h, device=dev, **KW)
+    enc = TorchGopEncoder(w, h, device=dev, **kw)
     payloads = enc.encode_sequence(frames)
     sh, state, shown = None, {"slots": [None] * 8}, []
     for p in payloads:
@@ -565,16 +718,18 @@ def phase_decode(dev, frames, w, h) -> None:
             compared += 1
     if compared == 0:
         raise AssertionError("no recon slots to compare")
-    log(f"decode {w}x{h}: {len(shown)} frames; {compared} slot planes equal "
-        f"the encoder recon")
+    log(f"decode {label} {w}x{h}: {len(shown)} frames; {compared} slot "
+        f"planes equal the encoder recon")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--warm", type=int, default=0, metavar="N",
-                    help="run the slice N more times and print medians")
+                    help="run each configuration's slice N more times and "
+                    "print medians")
     ap.add_argument("--profile", action="store_true",
-                    help="run one more slice under torch.profiler")
+                    help="run one more default-configuration slice under "
+                    "torch.profiler")
     opts = ap.parse_args()
 
     import torch
@@ -606,16 +761,25 @@ def main() -> int:
     recs = phase_kernels(dev)
     phase_before_after(dev)
     frames = make_frames(N_FRAMES, W, H)
-    launches = phase_slice(dev, frames)
+    launches8 = phase_slice(dev, frames, "cpu_used 8", KW_CPU8)
+    launches = phase_slice(dev, frames, "default", KW_DEFAULT)
     if opts.warm:
-        phase_warm(dev, frames, opts.warm)
+        phase_warm(dev, frames, "cpu_used 8", KW_CPU8, opts.warm)
+        phase_warm(dev, frames, "default", KW_DEFAULT, opts.warm)
     if opts.profile:
-        phase_profile(dev, frames)
-    phase_decode(dev, make_frames(N_FRAMES, 352, 288), 352, 288)
+        phase_profile(dev, frames, KW_DEFAULT)
+    phase_decode(dev, make_frames(N_FRAMES, 352, 288), 352, 288,
+                 "cpu_used 8", KW_CPU8)
+    phase_decode(dev, make_frames(N_FRAMES, 768, 576), 768, 576, "default",
+                 KW_DEFAULT)
 
+    # launches: the default-configuration slice's (this script's main
+    # path), K1's two entries apart; the cpu_used 8 slice's beside them
     kernels = []
     for name, rec in recs.items():
-        kernels.append(dict(rec, launches=launches[name]))
+        key = KERNELS[name][3]
+        kernels.append(dict(rec, launches=launches.get(key, 0),
+                            launches_cpu_used_8=launches8.get(key, 0)))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -30,6 +30,7 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
     kernel's name."""
     import chip_smoke
     for name, fn, label, args, _ in chip_smoke._cases(cuda_device):
+        name = chip_smoke.KERNELS[name][2]
         before = K.LAUNCHES[name]
         got = getattr(K, fn)(*args)
         assert K.LAUNCHES[name] == before + 1
@@ -118,6 +119,129 @@ def test_cuda_convolve_8tap_plane_matches_plain(cuda_device, n):
     assert K.LAUNCHES["convolve_8tap"] == before + 1
     want = K.convolve_8tap_plane_plain(plane, br, bc, kx, ky, n, n)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,n_cand,spread", [(16, 9, 1), (8, 9, 1),
+                                               (16, 4, 3), (8, 33, 2),
+                                               (16, 9, 400)])
+def test_cuda_block_ssd_at_matches_plain(cuda_device, bsz, n_cand, spread):
+    """K1's fused form on the card, exact: candidates within `spread` of a
+    centre that lies on or off the plane (a spread of 400 scatters them, so
+    the kernel reads each from the plane instead of a staged box), on a
+    plane whose width is no multiple of 16, and on one that is."""
+    rng = np.random.default_rng(bsz + n_cand + spread)
+    nby, nbx = 7, 9
+    B = nby * nbx
+    for Hr, Wr in ((150, 201), (160, 208)):
+        src = torch.as_tensor(rng.integers(0, 256, (nby * bsz, nbx * bsz + 3))
+                              .astype(np.uint8), device=cuda_device)
+        ref = torch.as_tensor(rng.integers(0, 256, (Hr, Wr)).astype(np.uint8),
+                              device=cuda_device)
+        cy = rng.integers(-bsz - 5, Hr + 5, (B, 1))
+        cx = rng.integers(-bsz - 5, Wr + 5, (B, 1))
+        br = torch.as_tensor((cy + rng.integers(-spread, spread + 1,
+                                                (B, n_cand)))
+                             .astype(np.int32), device=cuda_device)
+        bc = torch.as_tensor((cx + rng.integers(-spread, spread + 1,
+                                                (B, n_cand)))
+                             .astype(np.int32), device=cuda_device)
+        before = K.LAUNCHES["gather_windows"]
+        got = K.block_ssd_at(src, ref, br, bc, nby, nbx, bsz)
+        assert K.LAUNCHES["gather_windows"] == before + 1
+        want = K.block_ssd_at_plain(src, ref, br, bc, nby, nbx, bsz)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,wr,wc", [
+    (torch.uint8, 16, 16), (torch.uint8, 8, 8), (torch.uint8, 16, 24),
+    (torch.uint8, 23, 23), (torch.uint8, 5, 3), (torch.uint8, 71, 71),
+    (torch.int32, 25, 25), (torch.int32, 8, 8), (torch.int32, 3, 1)])
+def test_cuda_gather_windows_matches_plain(cuda_device, dtype, wr, wc):
+    """K1's gather form on the card, exact, with origins on and off the
+    plane: row widths that take the 16-byte row segments and widths that
+    take the 16-byte pieces of the output."""
+    rng = np.random.default_rng(wr * 100 + wc)
+    npdt = np.uint8 if dtype == torch.uint8 else np.int32
+    plane = torch.as_tensor(rng.integers(0, 256, (150, 201)).astype(npdt),
+                            device=cuda_device)
+    for B in (1, 333):
+        br = torch.as_tensor(rng.integers(-wr - 10, 160, B).astype(np.int32),
+                             device=cuda_device)
+        bc = torch.as_tensor(rng.integers(-wc - 10, 211, B).astype(np.int32),
+                             device=cuda_device)
+        before = K.LAUNCHES["gather_windows"]
+        got = K.gather_windows(plane, br, bc, wr, wc)
+        assert K.LAUNCHES["gather_windows"] == before + 1
+        assert torch.equal(got, K.gather_windows_plain(plane, br, bc, wr, wc))
+
+
+@pytest.mark.cuda
+def test_cuda_tpl_and_temporal_filter_match_the_cpu(cuda_device):
+    """tpl_gf_group and temporal_filter on the card against the same
+    functions with device="cpu": motion vectors and inter costs equal,
+    float32 results to 1e-6, filtered planes within 1 LSB; and both went
+    through the plane form of K2 and the gather form of K1 only."""
+    from aom_av1_lavish_torch.encoder import temporal_filter as FT
+    from aom_av1_lavish_torch.encoder import tpl as TT
+    from aom_av1_lavish_torch.utils.clips import make_frames
+
+    group = make_frames(7, 192, 128)
+    pairs = [(group[j][0], group[6][0]) for j in range(3)]
+    K.reset_launches()
+    for (gi, ge, gm), (ci, ce, cm) in zip(TT._group_costs(pairs,
+                                                          cuda_device),
+                                          TT._group_costs(pairs, "cpu")):
+        np.testing.assert_array_equal(gm, cm)
+        np.testing.assert_array_equal(ge, ce)
+        np.testing.assert_allclose(gi, ci, rtol=1e-6)
+    assert K.ENTRY_LAUNCHES == {"avl_ssd_surface_plane": 3}
+    imp_g, maps_g = TT.tpl_gf_group(group, 6, device=cuda_device)
+    imp_c, maps_c = TT.tpl_gf_group(group, 6, device="cpu")
+    np.testing.assert_allclose(imp_g, imp_c, rtol=1e-6)
+    for g, c in zip(maps_g, maps_c):
+        np.testing.assert_allclose(g, c, rtol=1e-6)
+    K.reset_launches()
+    got = FT.temporal_filter(group, 6, 120, device=cuda_device)
+    assert K.ENTRY_LAUNCHES == {"avl_ssd_surface_plane": 2,
+                                "avl_gather_windows": 6}
+    want = FT.temporal_filter(group, 6, 120, device="cpu")
+    for g, c in zip(got, want):
+        assert g.dtype == np.uint8 and g.shape == c.shape
+        assert np.abs(g.astype(np.int32) - c.astype(np.int32)).max() <= 1
+
+
+@pytest.mark.cuda
+def test_cuda_gop_with_tpl_and_tf_matches_decoder(cuda_device):
+    """The default configuration's tools at 96x64 on the card (cpu_used=8
+    for the wavefront KEY, then TPL and the filter set on the encoder): the
+    decoder reproduces every reference slot, and the refine made one fused
+    K1 launch per frame and reference."""
+    from aom_av1_lavish_torch.decoder.decoder import decode_frame_obus
+    from aom_av1_lavish_torch.encoder.gop import TorchGopEncoder
+    from aom_av1_lavish_torch.utils.clips import make_frames
+
+    frames = make_frames(8, 96, 64)
+    enc = TorchGopEncoder(96, 64, device=cuda_device, qindex=120,
+                          gf_length=8, use_tpu=True, enable_cdef=False,
+                          cpu_used=8)
+    enc.enable_tpl = enc.enable_tf = True
+    K.reset_launches()
+    payloads = enc.encode_sequence(frames)
+    assert len(payloads) == 8 and all(payloads)
+    assert K.ENTRY_LAUNCHES["avl_block_ssd_at"] == 13
+    assert K.ENTRY_LAUNCHES["avl_gather_windows"] == 6
+    assert K.LAUNCHES["ssd_surface"] == 26 + 12 + 2
+    assert "avl_ssd_surface" not in K.ENTRY_LAUNCHES
+    sh, state = None, {"slots": [None] * 8}
+    for p in payloads:
+        _, sh = decode_frame_obus(p, sh, state)
+    for slot in range(8):
+        if enc.slots[slot] is None:
+            continue
+        for pe, pd in zip(enc.slots[slot], state["slots"][slot]["planes"]):
+            np.testing.assert_array_equal(pe, pd)
 
 
 @pytest.mark.cuda

@@ -17,6 +17,7 @@ from aom_av1_lavish_tpu.common import interpred as IP
 from aom_av1_lavish_tpu.common import quant as Q
 from aom_av1_lavish_tpu.ops import inter_tpu as IJ
 from aom_av1_lavish_tpu.ops import wavefront as WJ
+from aom_av1_lavish_torch.ops import inter as IT
 from aom_av1_lavish_torch.ops import kernels as K
 from aom_av1_lavish_torch.ops import wavefront as WT
 
@@ -314,6 +315,131 @@ def test_gather_windows_clamps_origins_to_the_plane():
     rr = np.clip(fr[:, None, None] + np.arange(8)[None, :, None], 0, 19)
     cc = np.clip(fc[:, None, None] + np.arange(9)[None, None, :], 0, 29)
     np.testing.assert_array_equal(got.numpy(), plane[rr, cc])
+
+
+def _ssd_at_inputs(bsz, nby, nbx, n_cand, lo, hi, seed, off_plane):
+    """A source plane of (nby, nbx) blocks, a reference plane, and n_cand
+    origins per block: near the block's own position, or (off_plane)
+    anywhere up to two blocks outside the reference."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(lo, hi, (nby * bsz + 3, nbx * bsz + 5)).astype(np.uint8)
+    Hr, Wr = nby * bsz + 24, nbx * bsz + 40
+    ref = rng.integers(lo, hi, (Hr, Wr)).astype(np.uint8)
+    B = nby * nbx
+    if off_plane:
+        br = rng.integers(-2 * bsz, Hr + bsz, (B, n_cand))
+        bc = rng.integers(-2 * bsz, Wr + bsz, (B, n_cand))
+    else:
+        y0 = np.repeat(np.arange(nby), nbx) * bsz
+        x0 = np.tile(np.arange(nbx), nby) * bsz
+        br = y0[:, None] + rng.integers(0, 24, (B, n_cand))
+        bc = x0[:, None] + rng.integers(0, 40, (B, n_cand))
+    return src, ref, br.astype(np.int32), bc.astype(np.int32)
+
+
+@pytest.mark.parametrize("bsz,n_cand,lo,hi,off_plane", [
+    (16, 9, 0, 256, False), (8, 9, 0, 256, False), (16, 9, 240, 256, False),
+    (16, 5, 0, 256, True), (8, 35, 0, 256, True)])
+def test_block_ssd_at_matches_numpy(bsz, n_cand, lo, hi, off_plane):
+    """K1's fused form (its plain version on the CPU) against a direct
+    int64 numpy SSD with clamped window indices; exact, full-range and
+    bright pixels, origins on and off the plane."""
+    nby, nbx = 3, 4
+    src, ref, br, bc = _ssd_at_inputs(bsz, nby, nbx, n_cand, lo, hi,
+                                      bsz + n_cand, off_plane)
+    got = K.block_ssd_at(*map(torch.from_numpy, (src, ref, br, bc)), nby,
+                         nbx, bsz)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (nby * nbx,
+                                                             n_cand)
+    Hr, Wr = ref.shape
+    ar = np.arange(bsz)
+    want = np.empty((nby * nbx, n_cand), np.int64)
+    for b in range(nby * nbx):
+        by, bx = divmod(b, nbx)
+        blk = src[by * bsz:(by + 1) * bsz, bx * bsz:(bx + 1) * bsz] \
+            .astype(np.int64)
+        for k in range(n_cand):
+            rr = np.clip(br[b, k] + ar, 0, Hr - 1)
+            cc = np.clip(bc[b, k] + ar, 0, Wr - 1)
+            d = blk - ref[rr[:, None], cc[None, :]].astype(np.int64)
+            want[b, k] = (d * d).sum()
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("bsz,off_plane", [(16, False), (8, False),
+                                           (16, True)])
+def test_block_ssd_at_equals_gathers_and_float_ssd(bsz, off_plane):
+    """One fused call gives what the full-pel refine computed before it:
+    per candidate a gather_windows and a float32 subtract, square and sum
+    (exact integers below 2^24, so the float32 values are equal)."""
+    nby, nbx, n_cand = 3, 5, 9
+    src, ref, br, bc = map(torch.from_numpy, _ssd_at_inputs(
+        bsz, nby, nbx, n_cand, 0, 256, 40 + bsz, off_plane))
+    got = K.block_ssd_at(src, ref, br, bc, nby, nbx, bsz).to(torch.float32)
+    blk = K.stride_windows(src, 0, 0, nby, nbx, bsz, bsz).to(torch.float32)
+    for k in range(n_cand):
+        win = K.gather_windows(ref, br[:, k].contiguous(),
+                               bc[:, k].contiguous(), bsz, bsz)
+        d = win.to(torch.float32) - blk
+        assert torch.equal(got[:, k], (d * d).sum((1, 2)))
+
+
+def test_block_ssd_at_checks_dtype_shape_and_device():
+    def z(shape, dtype=torch.uint8):
+        return torch.zeros(shape, dtype=dtype)
+    o = z((6, 9), torch.int32)
+    with pytest.raises(ValueError, match="uint8 planes"):
+        K.block_ssd_at(z((32, 48), torch.int32), z((40, 60)), o, o, 2, 3, 16)
+    with pytest.raises(ValueError, match="does not hold 2x3 blocks"):
+        K.block_ssd_at(z((32, 47)), z((40, 60)), o, o, 2, 3, 16)
+    with pytest.raises(ValueError, match=r"int32 \(6, C\)"):
+        K.block_ssd_at(z((32, 48)), z((40, 60)), z((5, 9), torch.int32),
+                       z((5, 9), torch.int32), 2, 3, 16)
+    with pytest.raises(ValueError, match=r"int32 \(6, C\)"):
+        K.block_ssd_at(z((32, 48)), z((40, 60)), o.long(), o.long(), 2, 3,
+                       16)
+    meta = torch.empty((40, 60), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="expected all on the CPU"):
+        K.block_ssd_at(z((32, 48)), meta, o, o, 2, 3, 16)
+    with pytest.raises(ValueError, match="positive"):
+        K.gather_windows(z((8, 8)), z(2, torch.int32), z(2, torch.int32), 0,
+                         4)
+
+
+@pytest.mark.parametrize("ref_frame", [1, 13])
+def test_fullpel_search_matches_jax(xla_path, ref_frame):
+    """The two-scale full-pel search with its fused 3x3 refine against
+    inter_tpu._fullpel_search on a 96x64 frame (pixels 0..90, where the
+    reference's float32 SSD is exact) and each of two references: the
+    previous frame, and one eleven frames on, whose pan of 22 pixels lies
+    outside the full-resolution surface, so that only the half-resolution
+    pass and its refine find it."""
+    H, W, n = 64, 96, 14
+    rng = np.random.default_rng(3)
+    yy, xx = np.mgrid[0:H + 2 * n, 0:W + 2 * n]
+    base = (45 + 30 * np.sin(yy / 9.0) * np.cos(xx / 13.0)
+            + rng.normal(0, 3, yy.shape)).clip(0, 90).astype(np.uint8)
+    frames = [np.ascontiguousarray(base[i:i + H, 2 * i:2 * i + W])
+              for i in range(n)]
+    src, ref = frames[2], frames[ref_frame]
+    zc = np.zeros((H // 2, W // 2), np.uint8)
+    nby, nbx = H // 16, W // 16
+    y0 = np.repeat(np.arange(nby), nbx) * 16
+    x0 = np.tile(np.arange(nbx), nby) * 16
+    py, _, _, py2 = IJ._pad_ref_jnp(*map(jnp.asarray, (ref, zc, zc)))
+    blk = jnp.asarray(src).reshape(nby, 16, nbx, 16).transpose(0, 2, 1, 3) \
+        .reshape(nby * nbx, 16, 16).astype(jnp.int32)
+    want = IJ._fullpel_search(blk, py, py2, jnp.asarray(y0), jnp.asarray(x0),
+                              16, grid=(nby, nbx))
+    ty, _, _, ty2 = IT.pad_ref(*map(torch.from_numpy, (ref, zc, zc)))
+    got = IT._fullpel_search(torch.from_numpy(src), ty, ty2,
+                             torch.from_numpy(y0), torch.from_numpy(x0), nby,
+                             nbx)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    if ref_frame == 13:
+        # the refine's candidates won somewhere
+        assert (got[1].abs() > IT.FULLPEL_RADIUS).any()
 
 
 def test_wrappers_check_dtype_shape_and_device():

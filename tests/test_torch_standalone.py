@@ -153,6 +153,9 @@ EDITED = {"encoder/encoder.py": 40, "encoder/gop.py": 230,
           "encoder/ratectrl.py": 2}
 #: files of the same name that are not copies
 OWN = {"__init__.py", "encoder/__init__.py"}
+#: ports: the counterpart holds JAX code, so the file is rewritten on torch
+#: (its numpy parts carried over), not copied
+PORTS = {"encoder/tpl.py", "encoder/temporal_filter.py"}
 
 
 def _verbatim_copies():
@@ -161,7 +164,7 @@ def _verbatim_copies():
         for f in files:
             rel = os.path.relpath(os.path.join(d, f), PORT)
             if (f.endswith((".py", ".c")) and rel not in EDITED
-                    and rel not in OWN
+                    and rel not in OWN and rel not in PORTS
                     and not rel.startswith("ops" + os.sep)
                     and os.path.exists(os.path.join(REF, rel))):
                 out.append(rel)
@@ -277,3 +280,22 @@ def test_seams_to_unported_modules_raise_and_name_their_item(what, item):
     }
     with pytest.raises(NotImplementedError, match=item):
         calls[what]()
+
+
+@pytest.mark.parametrize("rel", sorted(PORTS))
+def test_ports_of_jax_modules_run_on_torch(rel):
+    """A module whose counterpart computes with JAX is a port: it has the
+    counterpart's name and public functions, imports torch, and differs
+    from the counterpart (a byte copy would import jax)."""
+    name = rel[:-3].replace("/", ".")
+    port = importlib.import_module("aom_av1_lavish_torch." + name)
+    ref = importlib.import_module("aom_av1_lavish_tpu." + name)
+    assert port.torch is torch
+    public = {k for k, v in vars(ref).items()
+              if callable(v) and not k.startswith("_")
+              and getattr(v, "__module__", None) == ref.__name__}
+    assert public and public <= set(vars(port))
+    assert (port.BLOCK, port.RADIUS) == (ref.BLOCK, ref.RADIUS)
+    with open(os.path.join(PORT, rel), "rb") as a, \
+            open(os.path.join(REF, rel), "rb") as b:
+        assert a.read() != b.read()
