@@ -3,20 +3,24 @@
 A package that stands on its own: it imports torch, never jax, and
 nothing of aom_av1_lavish_tpu.  The device layer of the JAX package
 (batched transforms, quantizer, motion search and compensation, wavefront
-intra, deblock, the P-frame chain) is re-implemented on torch tensors in
-ops/, with the Pallas kernels re-written by hand for NVIDIA Hopper
-(ops/csrc/*.cu).  The host layers (bitstream, common, runtime, dsp,
+intra, device-RDO intra trials, lossless analyze, deblock, the P-frame
+chain, single P frames and the realtime stream) is re-implemented on torch
+tensors in ops/, with the Pallas kernels re-written by hand for NVIDIA
+Hopper (ops/csrc/*.cu).  The host layers (bitstream, common, runtime, dsp,
 models, encoder, decoder, utils) are the port's own copies of the JAX
 package's modules of the same names, with the seams that reached a JAX
-module calling ops/ instead, or raising NotImplementedError for what is
-not ported yet.
+module calling ops/ instead; the one path not ported yet (frame-parallel GF
+groups) raises NotImplementedError.
 
-Entry points (GopEncoder, encode_gop_ivf, TorchAllIntraEncoder,
-WavefrontEncoder, DeviceChainEncoder) run on the card unless the caller
-passes a device; without a CUDA device they raise.  Functions below them
-take tensors and work on the tensors' device.  On a CPU tensor each kernel
-wrapper runs its plain PyTorch version; on a CUDA tensor it launches the
-kernel or raises.
+Entry points (GopEncoder, encode_gop_ivf, encode_twopass_ivf, first_pass,
+TorchAllIntraEncoder, encode_tpu_ivf, TpuRdoAllIntraEncoder,
+encode_tpu_rdo_ivf, TpuLowDelayEncoder, encode_tpu_lowdelay_ivf,
+encode_realtime_tpu_ivf, encode_lossless_ivf, WavefrontEncoder,
+IntraTrialEngine, DeviceChainEncoder, DeviceInterEncoder, DeviceRtEncoder)
+run on the card unless the caller passes a device; without a CUDA device
+they raise.  Functions below them take tensors and work on the tensors'
+device.  On a CPU tensor each kernel wrapper runs its plain PyTorch
+version; on a CUDA tensor it launches the kernel or raises.
 
 Every integer result must be bit-identical to the reference, so TF32 is
 off for matmuls and cuDNN convolutions alike.
@@ -27,7 +31,7 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__version__ = "0.2.0"
+__version__ = "0.4.0"
 
 
 def resolve_device(device=None) -> torch.device:

@@ -18,6 +18,7 @@ from ..bitstream import constants as c
 from ..bitstream import headers as H
 from ..bitstream.bits import BitWriter
 from ..bitstream.entropy import RangeEncoder
+from ..bitstream.ivf import write_ivf
 from ..bitstream.tables import FrameContext
 from ..common import blockd, coeffs as CF, intra
 from ..common.txfm import fwht4x4, iwht4x4
@@ -239,6 +240,9 @@ class LosslessEncoder:
     #: optional initial FrameContext (primary_ref CDF carry); when None,
     #: tiles start from the qindex-default context
     fc0 = None
+    #: the device of the batched analyze (use_jax, the reference's name for
+    #: it); None is the card, and an error when there is none
+    device = None
 
     def __init__(self, sh: H.SequenceHeader, fh: H.FrameHeader,
                  use_native: bool | None = None):
@@ -299,13 +303,14 @@ class LosslessEncoder:
         if analysis is not None:
             self.analysis = analysis
         elif use_jax and (fh.tile_cols_log2 or fh.tile_rows_log2):
-            raise NotImplementedError(
-                "the batched lossless analyze (ops/lossless) is not ported "
-                "yet (ROADMAP Queue 1 item 13)")
+            from ..ops.lossless import analyze_tiled_for_encoder
+            self.analysis = analyze_tiled_for_encoder(
+                self.src, self.tile_px_ranges(rows=True),
+                self.tile_px_ranges(rows=False), device=self.device)
         elif use_jax:
-            raise NotImplementedError(
-                "the batched lossless analyze (ops/lossless) is not ported "
-                "yet (ROADMAP Queue 1 item 13)")
+            from ..ops.lossless import analyze_for_encoder
+            self.analysis = analyze_for_encoder(self.src,
+                                                device=self.device)
         else:
             self.analysis = None
 
@@ -695,12 +700,23 @@ class LosslessEncoder:
 
 
 def encode_lossless_ivf(path: str, frames, width: int, height: int,
-                        fps=(30, 1)) -> None:
+                        fps=(30, 1), device=None) -> None:
     """Encode frames (list of (y,u,v)) as all-keyframe lossless IVF.
 
-    The per-4x4 analyze for ALL frames runs as one batched jit call (one
-    device round-trip); the per-frame native tile walk then packs each
-    frame's symbols at C speed."""
-    raise NotImplementedError(
-        "the batched lossless analyze (ops/lossless) is not ported "
-        "yet (ROADMAP Queue 1 item 13)")
+    The per-4x4 analyze for ALL frames runs as one batched program on
+    `device` (the card when None); the per-frame native tile walk then
+    packs each frame's symbols at C speed."""
+    sh = make_sequence_header(width, height)
+    encs = []
+    srcs = []
+    for f in frames:
+        fh = make_lossless_frame_header(sh)
+        enc = LosslessEncoder(sh, fh)
+        srcs.append(enc.pad_planes(f))
+        encs.append(enc)
+    from ..ops.lossless import analyze_frames_for_encoder
+    analyses = analyze_frames_for_encoder(srcs, device=device)
+    payloads = []
+    for i, (enc, f, an) in enumerate(zip(encs, frames, analyses)):
+        payloads.append((enc.encode_frame(f, analysis=an), i))
+    write_ivf(path, payloads, width, height, fps[0], fps[1])

@@ -1,10 +1,12 @@
 """GOP structure + rate-controlled encoding: KEY / ARF / P frames.
 
 Counterpart of aom_av1_lavish_tpu/encoder/gop.py with its device calls on
-torch: the KEY goes to the wavefront encoder (TorchAllIntraEncoder) and
-each GF group's hidden ARF and chained P frames to
-ops.inter.DeviceChainEncoder; GOP structure, rate control, headers, slot
-bookkeeping and the host emit are the reference's.
+torch: the KEY goes to the device-RDO encoder (TpuRdoAllIntraEncoder, frames
+up to 720x576) or the wavefront encoder (TorchAllIntraEncoder), each GF
+group's hidden ARF and chained P frames to ops.inter.DeviceChainEncoder,
+and single P frames (groups under 3 frames, use_arf=False) to
+TpuInterFrameEncoder's own device encode; GOP structure, rate control,
+headers, slot bookkeeping and the host emit are the reference's.
 
 Re-design of libaom's encode strategy (reference behavior:
 av1/encoder/encode_strategy.c av1_encode_strategy :1213 — frame-type
@@ -49,16 +51,16 @@ class GopEncoder:
     when None, and an error when there is none.
 
     use_tpu=True (the reference's name for it) is the batched device
-    path: wavefront KEY, then per GF group TPL (encoder/tpl), the ARF
+    path: the KEY (device RDO up to 720x576 at cpu_used <= 6 or unset,
+    else the wavefront), then per GF group TPL (encoder/tpl), the ARF
     temporal filter (encoder/temporal_filter) and the ARF and P chain,
-    all from one upload of the group's source planes.  use_tpu=False is
-    the host RD path; of it only TPL and the temporal filter run on the
-    device.
+    all from one upload of the group's source planes; GF groups under 3
+    frames and use_arf=False code single P frames on the device.
+    use_tpu=False is the host RD path; of it only TPL and the temporal
+    filter run on the device.
 
-    Not ported yet (each raises): the device-RDO KEY for frames up to
-    720x576 at cpu_used <= 6 or unset (ROADMAP Queue 1 item 11),
-    frame-parallel groups (item 16) and, on the device path, single P
-    frames outside a chain (GF groups under 3 frames, item 5)."""
+    Not ported yet (raises): frame-parallel groups (ROADMAP Queue 1
+    item 16)."""
 
     def __init__(self, width: int, height: int, device=None,
                  rc_cfg: RateControlConfig | None = None,
@@ -195,17 +197,17 @@ class GopEncoder:
         # reference's av1_set_speed_features_framesize_dependent
         # analog, speed_features.c:2202): the device-RDO intra
         # (partition DP over 8..64, full mode set, TX_MODE_SELECT
-        # depth search) costs ~1 s/frame up to 720p; above that the
+        # depth search) codes frames up to 720x576; above that its
         # per-SB host walk dominates and the fixed-16 wavefront keeps
         # the KEY off the critical path.
         rdo_ok = False
         if self.use_tpu:
             area = self.sh.max_frame_width * self.sh.max_frame_height
-            # <= SD: the RDO KEY costs ~1 s and the BD-rate win is
-            # measured; above that its per-SB host walk (5 s at 720p,
-            # 13 s at 1080p) dominates short GOPs — the wavefront KEY
-            # keeps large resolutions on the fast path (KEYs amortize
-            # over kf_interval in production either way)
+            # the rule: device RDO up to SD (720x576), where its BD-rate
+            # win is measured; above that its per-SB host walk dominates
+            # short GOPs and the wavefront KEY keeps large resolutions on
+            # the fast path (KEYs amortize over kf_interval in production
+            # either way)
             rdo_ok = (area <= 720 * 576
                       and (self.sf is None or self.sf.cpu_used <= 6)
                       and self.sh.bit_depth == 8)
@@ -224,14 +226,15 @@ class GopEncoder:
         fh.sharpness_level = self.lf_sharpness
         if self.use_tpu:
             if rdo_ok:
-                raise NotImplementedError(
-                    "the device-RDO KEY (frames up to 720x576 at cpu_used "
-                    "<= 6) is not ported yet (ROADMAP Queue 1 item 11); "
-                    "use cpu_used 8 or 9")
-            from .tpu_intra import TorchAllIntraEncoder
-            enc = TorchAllIntraEncoder(self.sh, fh,
-                                       use_native=self.use_native,
-                                       device=self.device)
+                from .tpu_rdo import TpuRdoAllIntraEncoder
+                enc = TpuRdoAllIntraEncoder(self.sh, fh,
+                                            use_native=self.use_native,
+                                            device=self.device)
+            else:
+                from .tpu_intra import TorchAllIntraEncoder
+                enc = TorchAllIntraEncoder(self.sh, fh,
+                                           use_native=self.use_native,
+                                           device=self.device)
         else:
             kw = {}
             if self.sf is not None:
@@ -302,7 +305,8 @@ class GopEncoder:
             fh.allow_ref_frame_mvs = 0
             enc = TpuInterFrameEncoder(self.sh, fh, self.slots,
                                        use_native=self.use_native,
-                                       ref_list=ref_list)
+                                       ref_list=ref_list,
+                                       device=self.device)
             if ext_results is not None:
                 # device-chained frame (GF-group batch): the device
                 # program already applied the in-loop deblock at the
@@ -552,14 +556,6 @@ class GopEncoder:
     def encode_sequence(self, frames) -> list:
         """Encode all frames; returns one payload per display frame."""
         n = len(frames)
-        for item in self._build_schedule(n):
-            if (self.use_tpu and item[0] == "gf"
-                    and not (self.use_arf and item[2] >= 3)):
-                raise NotImplementedError(
-                    "GF groups shorter than 3 frames (and use_arf=False) "
-                    "code single P frames through DeviceInterEncoder, which "
-                    "is not ported yet (ROADMAP Queue 1 item 5); use "
-                    "sequences whose groups hold 3 or more frames")
         self._adapt_kf_boost(frames)
         if self.twopass_stats is not None:
             from .pass2 import TwoPassAllocator
@@ -771,9 +767,18 @@ def encode_gop_ivf(path: str, frames, width: int, height: int,
 
 def encode_twopass_ivf(path: str, frames, width: int, height: int,
                        fps=(30, 1), stats_path: str | None = None,
-                       **kw) -> None:
-    """Two-pass encode: stats pass, optional stats file round-trip, then
-    pass 2 with closed-form bit allocation."""
-    raise NotImplementedError(
-        "the first pass (encoder/firstpass) is not ported yet (ROADMAP "
-        "Queue 1 item 14)")
+                       device=None, **kw) -> None:
+    """Two-pass encode: stats pass (firstpass.py), optional stats file
+    round-trip, then pass 2 with closed-form bit allocation; both passes'
+    device work on `device` (the card when None)."""
+    from ..bitstream.ivf import write_ivf
+    from .firstpass import first_pass, load_stats, save_stats
+    stats = first_pass(frames, device=device)
+    if stats_path is not None:
+        save_stats(stats_path, stats)
+        stats = load_stats(stats_path)
+    enc = GopEncoder(width, height, device=device, twopass_stats=stats,
+                     **kw)
+    payloads = enc.encode_sequence(frames)
+    write_ivf(path, [(p, i) for i, p in enumerate(payloads)],
+              width, height, fps[0], fps[1])

@@ -1,7 +1,7 @@
-"""TPU low-delay encoder: batched device P-frames + wavefront key frames.
+"""Device low-delay encoder: batched device P-frames + wavefront key frames.
 
-Device side (ops/inter_tpu.py) runs motion search, motion compensation and
-transform coding for ALL 16x16 blocks of a P-frame in one jit call (inter
+Device side (ops/inter.py) runs motion search, motion compensation and
+transform coding for ALL 16x16 blocks of a P-frame in one batched pass (inter
 blocks have no neighbor-recon dependency, so no wavefront is needed).  The
 host walks the fixed partition tree and drives the native entropy coder.
 """
@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import resolve_device
 from ..bitstream import constants as c
 from ..common import blockd
 from ..common import txtype as TT
@@ -21,7 +22,9 @@ from .tpu_intra import TorchAllIntraEncoder
 
 class TpuInterFrameEncoder(InterFrameEncoder):
     """Fixed 16x16 inter blocks, whole-frame device encode; searches
-    every ref in ref_list on device, each block picks its best."""
+    every ref in ref_list on device, each block picks its best.  A frame
+    that is handed no chain results encodes itself on `device` (the card
+    when None, resolved only then)."""
 
     #: deblock level comes from the q-derived estimate in the header
     #: (picklpf.c LPF_PICK_FROM_Q), not the host trial search — the
@@ -33,9 +36,10 @@ class TpuInterFrameEncoder(InterFrameEncoder):
     _recon_prefiltered = False
 
     def __init__(self, sh, fh, refs, use_native=None,
-                 ref_list=(c.LAST_FRAME,)):
+                 ref_list=(c.LAST_FRAME,), device=None):
         super().__init__(sh, fh, refs, use_native=use_native,
                          block_size=c.BLOCK_16X16, ref_list=ref_list)
+        self.device = device
         self._results = None
         self._res_raw = None
 
@@ -186,10 +190,19 @@ class TpuInterFrameEncoder(InterFrameEncoder):
             self.recon[2][:rv.shape[0], :rv.shape[1]] = rv
             self._external_recon = None
         if self._res_raw is None and self._results is None:
-            raise NotImplementedError(
-                "single P frames outside a device chain "
-                "(DeviceInterEncoder) are not ported yet (ROADMAP Queue 1 "
-                "item 5); pass the chain's results as ext_results")
+            from ..ops.inter import DeviceInterEncoder
+            dev = DeviceInterEncoder(self.fh.base_q_idx, device=self.device)
+            ref_planes = [self.refs[self.fh.ref_frame_idx[r - 1]]
+                          for r in self.ref_list]
+            self._res_raw = dev.encode_frame_raw(
+                [self.src[0][:self.mi_rows * 4, :self.mi_cols * 4],
+                 self.src[1][:self.mi_rows * 2, :self.mi_cols * 2],
+                 self.src[2][:self.mi_rows * 2, :self.mi_cols * 2]],
+                ref_planes)
+            ry, ru, rv = dev.recon
+            self.recon[0][:ry.shape[0], :ry.shape[1]] = ry
+            self.recon[1][:ru.shape[0], :ru.shape[1]] = ru
+            self.recon[2][:rv.shape[0], :rv.shape[1]] = rv
 
     def _results_dicts(self):
         """Per-block dict view of the raw device results — built only
@@ -197,10 +210,9 @@ class TpuInterFrameEncoder(InterFrameEncoder):
         native C walker consumes _res_raw directly; at 1080p the dict
         packing alone costs ~50 ms/frame of pure host overhead)."""
         if self._results is None:
-            raise NotImplementedError(
-                "the per-block dict view of the device rows "
-                "(pack_frame_results) is not ported yet (ROADMAP Queue 1 "
-                "item 5); the native tile walker reads the raw rows")
+            from ..ops.inter import pack_frame_results
+            self._results = pack_frame_results(self._raw16(),
+                                               self.mi_cols * 4)
         return self._results
 
     def _search(self, mi_row, mi_col, bsize):
@@ -309,11 +321,13 @@ class TpuInterFrameEncoder(InterFrameEncoder):
 
 
 class TpuLowDelayEncoder:
-    """Key frame (wavefront intra) + P-frames (batched inter), all-TPU
-    compute path with native entropy coding."""
+    """Key frame (wavefront intra) + P-frames (batched inter), all on
+    `device` (the card when None, and an error when there is none), with
+    native entropy coding."""
 
     def __init__(self, width, height, qindex=60, use_native=None,
-                 deblock=True):
+                 deblock=True, device=None):
+        self.device = resolve_device(device)
         self.sh = make_sequence_header(width, height)
         self.qindex = qindex
         self.use_native = use_native
@@ -326,12 +340,14 @@ class TpuLowDelayEncoder:
             fh = make_lossy_frame_header(self.sh, self.qindex,
                                          deblock=self.deblock)
             enc = TorchAllIntraEncoder(self.sh, fh,
-                                       use_native=self.use_native)
+                                       use_native=self.use_native,
+                                       device=self.device)
         else:
             fh = make_inter_frame_header(self.sh, self.qindex,
                                          deblock=self.deblock)
             enc = TpuInterFrameEncoder(self.sh, fh, self.slots,
-                                       use_native=self.use_native)
+                                       use_native=self.use_native,
+                                       device=self.device)
         payload = enc.encode_frame(planes)
         w, h = self.sh.max_frame_width, self.sh.max_frame_height
         cw = (w + 1) >> 1
@@ -347,9 +363,11 @@ class TpuLowDelayEncoder:
 
 
 def encode_tpu_lowdelay_ivf(path: str, frames, width: int, height: int,
-                            qindex: int = 60, fps=(30, 1), **kw) -> None:
+                            qindex: int = 60, fps=(30, 1), device=None,
+                            **kw) -> None:
     from ..bitstream.ivf import write_ivf
-    enc = TpuLowDelayEncoder(width, height, qindex=qindex, **kw)
+    enc = TpuLowDelayEncoder(width, height, qindex=qindex, device=device,
+                             **kw)
     payloads = []
     for i, f in enumerate(frames):
         payloads.append((enc.encode_frame(f), i))

@@ -17,7 +17,8 @@ from .. import resolve_device
 from ..bitstream import constants as c
 from ..common import blockd
 from ..common import txtype as TT
-from .lossy import LossyAllIntraEncoder
+from .lossy import LossyAllIntraEncoder, make_lossy_frame_header
+from .encoder import make_sequence_header
 from ..ops.deblock import deblock_fixed16
 from ..ops.wavefront import WavefrontEncoder
 
@@ -190,9 +191,33 @@ class TorchAllIntraEncoder(LossyAllIntraEncoder):
 
 
 def encode_tpu_ivf(path: str, frames, width: int, height: int,
-                   qindex: int = 60, fps=(30, 1)) -> None:
-    """All frames through one batched device program, then the per-frame
-    native emit (the reference's multi-frame all-intra entry)."""
-    raise NotImplementedError(
-        "the batched multi-frame wavefront (encode_frames_raw) is not "
-        "ported yet (ROADMAP Queue 1 item 9)")
+                   qindex: int = 60, fps=(30, 1), device=None) -> None:
+    """All frames ride ONE batched device program on `device` (the card
+    when None): the wavefront loop's per-step cost is fixed, so N frames
+    share one frame's steps; then each frame is emitted through the native
+    tile walker."""
+    from ..bitstream.ivf import write_ivf
+    device = resolve_device(device)
+    sh = make_sequence_header(width, height)
+    # probe one encoder for the padded geometry + lambda
+    fh0 = make_lossy_frame_header(sh, qindex)
+    probe = TorchAllIntraEncoder(sh, fh0, device=device)
+    wave = WavefrontEncoder(fh0.base_q_idx, probe.lam, device=device)
+    probe.pad_planes(frames[0])
+    h = probe.mi_rows * 4
+    w = probe.mi_cols * 4
+    padded = []
+    for f in frames:
+        e = TorchAllIntraEncoder(sh, make_lossy_frame_header(sh, qindex),
+                                 device=device)
+        e.pad_planes(f)
+        padded.append([e.src[0][:h, :w], e.src[1][:h >> 1, :w >> 1],
+                       e.src[2][:h >> 1, :w >> 1]])
+    raw = wave.encode_frames_raw(padded)
+    payloads = []
+    for i, f in enumerate(frames):
+        fh = make_lossy_frame_header(sh, qindex)
+        enc = TorchAllIntraEncoder(sh, fh, device=device)
+        enc._external_wave = raw[i]
+        payloads.append((enc.encode_frame(f), i))
+    write_ivf(path, payloads, width, height, fps[0], fps[1])

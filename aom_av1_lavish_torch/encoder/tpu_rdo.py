@@ -2,7 +2,7 @@
 
 The mode/size trial sweep — the reference encoder's hot loop
 (av1_rd_pick_partition, av1/encoder/partition_search.c:5310 +
-av1_rd_pick_intra_mode_sb, rdopt.c:3296) — runs as batched JAX tensor
+av1_rd_pick_intra_mode_sb, rdopt.c:3296) — runs as batched torch tensor
 ops (ops/rdo_intra.py): every candidate block of every size tries all
 61 luma intra modes at once.  A bottom-up partition DP over the cost
 grids (SURVEY §7(c)) picks the tree; the host then encodes each chosen
@@ -21,6 +21,9 @@ Differences vs the host search (LossyAllIntraEncoder._search):
 
 from __future__ import annotations
 
+import numpy as np
+
+from .. import resolve_device
 from ..bitstream import constants as c
 from ..common import blockd
 from .lossy import LossyAllIntraEncoder, make_lossy_frame_header
@@ -31,10 +34,11 @@ _PX2BSIZE = {(blockd.block_wide(b), blockd.block_high(b)): b
 
 
 class TpuRdoAllIntraEncoder(LossyAllIntraEncoder):
-    """LossyAllIntraEncoder with the trial math on device."""
+    """LossyAllIntraEncoder with the trial math on `device`: the card
+    when None, and an error when there is none."""
 
     def __init__(self, sh, fh, use_native=None, block_size=c.BLOCK_16X16,
-                 **kw):
+                 device=None, **kw):
         kw.setdefault("rect_parts", True)
         assert not kw.get("ext_parts"), "AB/4:1 not in the device DP"
         super().__init__(sh, fh, use_native=use_native,
@@ -43,6 +47,7 @@ class TpuRdoAllIntraEncoder(LossyAllIntraEncoder):
             "screen-content tools use the host search"
         assert self.sb_size == c.BLOCK_64X64, "device DP assumes SB64"
         assert self.bd == 8, "device trials are 8-bit (HBD: host search)"
+        self.device = resolve_device(device)
         self._costs = None
         self._uv_costs = None
         self._modes = None
@@ -62,9 +67,72 @@ class TpuRdoAllIntraEncoder(LossyAllIntraEncoder):
         return sq + rects
 
     def _run_device_rdo(self):
-        raise NotImplementedError(
-            "the device-RDO intra trials (ops/rdo_intra) are not ported "
-            "yet (ROADMAP Queue 1 item 11)")
+        from ..ops.rdo_intra import IntraTrialEngine, trial_modes_full
+        eng = IntraTrialEngine(self.fh.base_q_idx, bd=self.bd,
+                               device=self.device)
+        h, w = self.mi_rows * 4, self.mi_cols * 4
+
+        def lam_of(py, px, bh, bw):
+            return self._lam(py // 4, px // 4)
+
+        sizes = self._sizes()
+
+        def pad64(p, mult):
+            ph = -p.shape[0] % mult
+            pw = -p.shape[1] % mult
+            return np.pad(p, ((0, ph), (0, pw)), mode="edge") \
+                if (ph or pw) else np.ascontiguousarray(p)
+
+        self._costs = eng.trial_plane(pad64(self.src[0][:h, :w], 64),
+                                      sizes, lam_of)
+        self._modes = trial_modes_full()
+        # mode-signalling penalties per trial index (host cost model:
+        # +4.0 luma mode bits; +1.0 + 0.9*|d| for a nonzero angle delta)
+        pen = np.zeros(len(self._modes), np.float32)
+        for i, (m, d) in enumerate(self._modes):
+            pen[i] = 4.0 + ((1.0 + 0.9 * abs(d)) if d else 0.0)
+        self._mode_pen = pen
+        # chroma DC cost grids (1:1 with luma block geometry)
+        self._uv_costs = {}
+        if self.num_planes > 1:
+            ch, cw = h >> self.ss_y, w >> self.ss_x
+
+            def lam_uv(py, px, bh, bw):
+                return self._lam((py << self.ss_y) // 4,
+                                 (px << self.ss_x) // 4)
+
+            for p in (1, 2):
+                csizes = sorted({(bw >> self.ss_x, bh >> self.ss_y)
+                                 for (bw, bh) in sizes
+                                 if (bw >> self.ss_x) >= 4
+                                 and (bh >> self.ss_y) >= 4})
+                grids = eng.trial_plane(
+                    pad64(self.src[p][:ch, :cw], 64 >> min(self.ss_x,
+                                                           self.ss_y)),
+                    csizes, lam_uv, dc_only=True)
+                self._uv_costs[p] = grids
+
+    def _leaf_cost(self, mi_row, mi_col, bw, bh):
+        """(cost, mode, delta) for a NONE leaf at (mi_row, mi_col):
+        device luma trials reduced over modes + chroma DC cost."""
+        grid = self._costs[(bw, bh)]
+        i, j = (mi_row * 4) // bh, (mi_col * 4) // bw
+        lam = self._lam(mi_row, mi_col)
+        tot = grid[i, j] + lam * self._mode_pen
+        k = int(np.argmin(tot))
+        cost = float(tot[k])
+        mode, delta = self._modes[k]
+        for p in (1, 2):
+            if p not in self._uv_costs:
+                continue
+            cbw, cbh = bw >> self.ss_x, bh >> self.ss_y
+            g = self._uv_costs[p].get((cbw, cbh))
+            if g is None:     # sub-4 chroma (shared-ref 4x4 groups)
+                continue
+            ci = (mi_row * 4 >> self.ss_y) // cbh
+            cj = (mi_col * 4 >> self.ss_x) // cbw
+            cost += float(g[ci, cj, 0]) + lam * 1.0
+        return cost, mode, delta
 
     # -- partition DP (mirrors LossyAllIntraEncoder._search rules) ---------
 
@@ -223,14 +291,16 @@ def encode_tpu_rdo_ivf(path: str, frames, width: int, height: int,
                        qindex: int = 60, fps=(30, 1),
                        block_size: int = c.BLOCK_16X16,
                        enable_cdef: int = 0, enable_restoration: int = 0,
-                       tx_select: bool = True, **kw) -> None:
-    """Device-RDO all-intra encode to IVF (quality path)."""
+                       tx_select: bool = True, device=None, **kw) -> None:
+    """Device-RDO all-intra encode to IVF (quality path), the trials on
+    `device` (the card when None)."""
     from ..bitstream.ivf import write_ivf
     sh = make_sequence_header(width, height, enable_cdef=enable_cdef,
                               enable_restoration=enable_restoration)
     payloads = []
     for i, f in enumerate(frames):
         fh = make_lossy_frame_header(sh, qindex, tx_select=tx_select)
-        enc = TpuRdoAllIntraEncoder(sh, fh, block_size=block_size, **kw)
+        enc = TpuRdoAllIntraEncoder(sh, fh, block_size=block_size,
+                                    device=device, **kw)
         payloads.append((enc.encode_frame(f), i))
     write_ivf(path, payloads, width, height, fps[0], fps[1])

@@ -1,9 +1,10 @@
 """Whole-frame batched P-frame encode and the GF-group chain on torch
 tensors.
 
-Port of aom_av1_lavish_tpu/ops/inter_tpu.py (the parts the device GOP
-path runs: _p_frame_core, _eval_merge_level, _p_chain_fn and
-DeviceChainEncoder).  Every 16x16 block of a P frame is searched, motion
+Port of aom_av1_lavish_tpu/ops/inter_tpu.py: _p_frame_core and
+_eval_merge_level (p_frame), _p_chain_fn and DeviceChainEncoder (the GF
+group's chain), DeviceInterEncoder (a single P frame outside a chain),
+_p_step_fn, prep_ref_state and DeviceRtEncoder (the realtime stream).  Every 16x16 block of a P frame is searched, motion
 compensated, transform coded and reconstructed in one batched pass: a
 two-scale exhaustive full-pel search (kernel K2, which cuts its windows
 from the padded reference plane itself, and K1's fused form for the 3x3
@@ -388,8 +389,9 @@ def _merge_candidates(mvr, mvc, ref, n1, n2, n_refs):
 
 
 def p_frame(src_y, src_u, src_v, refs_y, refs_u, refs_v, refs_y2, pq_y,
-            pq_u, pq_v, lam, hp, interp=True):
-    """Whole-frame P encode with the {16, 32, 64} merge DP.
+            pq_u, pq_v, lam, hp, interp=True, merge=True):
+    """Whole-frame P encode with the {16, 32, 64} merge DP (merge=False:
+    fixed 16x16 blocks, r32 and r64 stay empty and lvl zero).
 
     src_*: uint8 planes (H, W multiples of 16); refs_*: lists of 1 or 2
     PADR-padded reference planes (refs_y2 the half-res luma sums); pq_*:
@@ -517,7 +519,7 @@ def p_frame(src_y, src_u, src_v, refs_y, refs_u, refs_v, refs_y2, pq_y,
     r32 = torch.zeros((0, 1542), dtype=torch.int16, device=dev)
     r64 = torch.zeros((0, 3078), dtype=torch.int16, device=dev)
     levels = []
-    if nby2 > 0 and nbx2 > 0:
+    if merge and nby2 > 0 and nbx2 > 0:
         levels.append((32, 1, nby2, nbx2, c.TX_32X32, c.TX_16X16, OH32))
         if nby4 > 0 and nbx4 > 0:
             levels.append((64, 2, nby4, nbx4, c.TX_64X64, c.TX_32X32,
@@ -699,3 +701,139 @@ class DeviceChainEncoder:
         recons = [None if r is None else split_recon(r.cpu().numpy(), H, W)
                   for r in recs]
         return host, recons
+
+
+def pack_frame_results(res_buf, W):
+    """Packed device result buffer (B, 390) int16 -> the per-block dict
+    the host emitter (encoder/tpu_inter.py) walks.  Layout per block:
+    [mv_r, mv_c, ref, eob_y, eob_u, eob_v, qy*256, qu*64, qv*64]."""
+    nbx = W // 16
+    res = {}
+    for b in range(res_buf.shape[0]):
+        r, cc = divmod(b, nbx)
+        row = res_buf[b]
+        res[(r, cc)] = dict(
+            mv=(int(row[0]), int(row[1])), ref_idx=int(row[2]),
+            qy=row[6:262], eoby=int(row[3]), qu=row[262:326],
+            eobu=int(row[4]), qv=row[326:390], eobv=int(row[5]))
+    return res
+
+
+def _crop(planes, H, W):
+    return (planes[0][:H, :W], planes[1][:H >> 1, :W >> 1],
+            planes[2][:H >> 1, :W >> 1])
+
+
+def _frame_quant(qindex: int, device):
+    """One frame's quantizer tensors, RD lambda and high-precision-MV
+    flag on `device` (to_device_state's per-frame entry)."""
+    return to_device_state([], [qindex], device)[1][0]
+
+
+class DeviceInterEncoder:
+    """Whole-frame batched P-frame encode of one frame outside a chain,
+    over one or two reference frames, with the {16, 32, 64} merge DP and
+    the regular interp filter; the caller deblocks."""
+
+    def __init__(self, qindex: int, device=None):
+        self.qindex = qindex
+        self.device = resolve_device(device)
+        self._q = _frame_quant(qindex, self.device)
+
+    def encode_frame(self, src_planes, ref_planes_list):
+        """src_planes: mi-aligned (y, u, v); ref_planes_list: list of
+        visible (y, u, v) reference frames (1 or 2).  Returns dict of
+        per-block results + recon (16x16-leaf view; merged levels are
+        in self.res_raw)."""
+        raw = self.encode_frame_raw(src_planes, ref_planes_list)
+        return pack_frame_results(raw["r16"], src_planes[0].shape[1])
+
+    def encode_frame_raw(self, src_planes, ref_planes_list):
+        """Like encode_frame but returns the raw result dict (r16 / r32 /
+        r64 raster buffers + the lvl partition map) that the emitters
+        consume directly."""
+        H, W = src_planes[0].shape[:2]
+        assert H % 16 == 0 and W % 16 == 0
+        dev = self.device
+        src = [to_device(p, dev) for p in _crop(src_planes, H, W)]
+        refs = [pad_ref(*(to_device(p, dev) for p in rp[:3]))
+                for rp in ref_planes_list]
+        ry, ru, rv, ry2 = (list(t) for t in zip(*refs))
+        q = self._q
+        out = p_frame(*src, ry, ru, rv, ry2, *q["pq"], q["lam"], q["hp"],
+                      interp=False)
+        self.recon = split_recon(out["rec"].cpu().numpy(), H, W)
+        self.res_raw = {k: out[k].cpu().numpy()
+                        for k in ("r16", "r32", "r64", "lvl")}
+        return self.res_raw
+
+
+def prep_ref_state(planes, device):
+    """Upload + pad a host reconstruction into the device-resident
+    (ly, lu, lv, ly2) reference state (keyframe bootstrap)."""
+    H, W = planes[0].shape[:2]
+    return pad_ref(*(to_device(p, device) for p in _crop(planes, H, W)))
+
+
+def p_step(src, state, q):
+    """Streaming single-ref P step: encode one frame on fixed 16x16
+    blocks (no merge DP, regular filter, no deblock) against the padded
+    reference state and produce the next one, so the reference never
+    leaves the device between frames -> (r16 (B, 390) int16, rec
+    (H + H//2, W) uint8, next state)."""
+    H, W = src[0].shape
+    ly, lu, lv, ly2 = state
+    out = p_frame(*src, [ly], [lu], [lv], [ly2], *q["pq"], q["lam"],
+                  q["hp"], interp=False, merge=False)
+    rec = out["rec"]
+    return out["r16"], rec, pad_ref(*split_recon(rec, H, W))
+
+
+class DeviceRtEncoder:
+    """Streaming P-frame encoder with device-resident reference state:
+    per frame, upload the source, run one device step and copy only the
+    result rows back.  Reconstruction stays on the device (deblocking
+    off); fetch it explicitly via `fetch_recon` if needed."""
+
+    def __init__(self, qindex: int, device=None):
+        self.qindex = qindex
+        self.device = resolve_device(device)
+        self._q = _frame_quant(qindex, self.device)
+        self.state = None      # (ly, lu, lv, ly2) device tensors
+        self._rec_d = None
+
+    def reset_ref(self, planes):
+        self.state = prep_ref_state(planes, self.device)
+        self._rec_d = None
+
+    def encode_frame_async(self, src_planes):
+        """Enqueue one frame's device step and the copy of its result
+        rows; returns a handle for `realize()`.  The next frame may be
+        enqueued at once (its reference is the device-resident state),
+        overlapping this frame's copy with that compute: on the card the
+        rows go to pinned host memory without blocking and an event marks
+        the copy's end."""
+        H, W = src_planes[0].shape[:2]
+        src = [to_device(p, self.device) for p in _crop(src_planes, H, W)]
+        r16, self._rec_d, self.state = p_step(src, self.state, self._q)
+        if r16.device.type != "cuda":
+            return r16, None
+        host = torch.empty(r16.shape, dtype=r16.dtype, pin_memory=True)
+        host.copy_(r16, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    @staticmethod
+    def realize(handle):
+        """The (B, 390) int16 rows of a frame, once its copy is done."""
+        rows, done = handle
+        if done is not None:
+            done.synchronize()
+        return rows.numpy()
+
+    def encode_frame(self, src_planes):
+        return self.realize(self.encode_frame_async(src_planes))
+
+    def fetch_recon(self, H, W):
+        return split_recon(self._rec_d.cpu().numpy(), H, W)

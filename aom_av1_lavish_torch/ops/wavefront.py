@@ -5,7 +5,9 @@ diagonal have no prediction dependency for the non-directional mode set,
 so each wave encodes as one batch: gather edges -> 7 intra predictions ->
 batched integer DCT -> quantize (kernel K4) -> RD mode pick -> exact
 inverse -> scatter recon.  The reference's lax.fori_loop over waves is a
-Python loop here; the recon stays on the device between waves.
+Python loop here; the recon stays on the device between waves.  Several
+frames of one geometry ride the same waves as a batch axis (the
+reference's vmap): the multi-frame all-intra entry.
 """
 
 from __future__ import annotations
@@ -123,27 +125,33 @@ def predict_modes(above, left, al, have_top, have_left, B: int):
 
 def _plane_encode(recon, src, ys, xs, B_, scan, dc_mask, pq, tx_size,
                   n_modes, lam):
-    """One plane of one wave: (recon, best mode, qcoeff of the best mode,
-    its eob); recon is updated in place.  Waves are not padded to a
-    common width (the wave loop is in Python), so every lane is a real
-    block and there is nothing for the reference's mode="drop" to drop."""
+    """One plane of one wave for a batch of N frames of one geometry:
+    recon and src are (N, H, W), and every frame codes the wave's blocks
+    (ys, xs) in the same pass (the reference's vmap over frames), so the
+    quantizer (K4) is launched once for all N.  Returns (recon, best mode
+    (N, n), qcoeff of the best mode (N, n, B_*B_), its eob (N, n)); recon
+    is updated in place.  Waves are not padded to a common width (the wave
+    loop is in Python), so every lane is a real block and there is nothing
+    for the reference's mode="drop" to drop."""
     dev = recon.device
+    N, n = recon.shape[0], ys.shape[0]
     rp = torch.nn.functional.pad(recon, (1, 0, 1, 0))     # index k+1 == k
     ar = torch.arange(B_, device=dev)
-    above = rp[ys[:, None], xs[:, None] + 1 + ar[None, :]]
-    leftc = rp[ys[:, None] + 1 + ar[None, :], xs[:, None]]
-    al = rp[ys, xs]
-    first_l = rp[ys + 1, xs]
-    first_a = rp[ys, xs + 1]
-    blk = src[ys[:, None, None] + ar[None, :, None],
-              xs[:, None, None] + ar[None, None, :]]
-    have_top = ys > 0
-    have_left = xs > 0
-    above = above.to(torch.int32)
-    leftc = leftc.to(torch.int32)
-    al = al.to(torch.int32)
-    first_l = first_l.to(torch.int32)
-    first_a = first_a.to(torch.int32)
+    above = rp[:, ys[:, None], xs[:, None] + 1 + ar[None, :]]
+    leftc = rp[:, ys[:, None] + 1 + ar[None, :], xs[:, None]]
+    al = rp[:, ys, xs]
+    first_l = rp[:, ys + 1, xs]
+    first_a = rp[:, ys, xs + 1]
+    rows = ys[:, None, None] + ar[None, :, None]
+    cols = xs[:, None, None] + ar[None, None, :]
+    blk = src[:, rows, cols].reshape(N * n, B_, B_)
+    have_top = (ys > 0).repeat(N)
+    have_left = (xs > 0).repeat(N)
+    above = above.reshape(N * n, B_).to(torch.int32)
+    leftc = leftc.reshape(N * n, B_).to(torch.int32)
+    al = al.reshape(N * n).to(torch.int32)
+    first_l = first_l.reshape(N * n).to(torch.int32)
+    first_a = first_a.reshape(N * n).to(torch.int32)
     # edge fill rules (reconintra.c:1309 defaults)
     above_f = torch.where(have_top[:, None], above,
                           torch.where(have_left[:, None],
@@ -178,11 +186,9 @@ def _plane_encode(recon, src, ys, xs, B_, scan, dc_mask, pq, tx_size,
     sel = best + torch.arange(best.shape[0], device=dev) * M
     q_best = qcoeff.reshape(-1, B_ * B_)[sel]
     eob_best = eob[sel]
-    recon_best = recon_all[sel]
-    rows = ys[:, None, None] + ar[None, :, None]
-    cols = xs[:, None, None] + ar[None, None, :]
-    recon[rows, cols] = recon_best
-    return recon, best, q_best, eob_best
+    recon[:, rows, cols] = recon_all[sel].reshape(N, n, B_, B_)
+    return (recon, best.reshape(N, n), q_best.reshape(N, n, B_ * B_),
+            eob_best.reshape(N, n))
 
 
 class WavefrontEncoder:
@@ -205,15 +211,18 @@ class WavefrontEncoder:
                                                     min(nbr, d + 1))])
         return waves, nbr, nbc
 
-    def encode_frame_raw(self, planes):
-        """One frame's (y, u, v) -> (results dict, res390, recon planes),
-        the reference's per-frame encode_frames_raw output."""
+    def encode_frames_raw(self, frame_list):
+        """Batched multi-frame encode: the N same-geometry (y, u, v) frames
+        of frame_list ride the same waves as a batch axis, one quantizer
+        launch per wave and plane for all of them.  Returns per frame
+        (results dict, res390, recon planes)."""
         dev = self.device
         B = self.B
         Bc = B // 2
-        src_y, src_u, src_v = [torch.as_tensor(np.ascontiguousarray(p),
-                                               device=dev) for p in planes]
-        H, W = src_y.shape
+        src_y, src_u, src_v = [
+            torch.as_tensor(np.stack([np.asarray(f[pi]) for f in frame_list]),
+                            device=dev) for pi in range(3)]
+        N, H, W = src_y.shape
         assert H % B == 0 and W % B == 0
         waves, nbr, nbc = self._wave_geometry(H, W)
         scan_y = torch.tensor(tables.scan(c.TX_16X16, c.DCT_DCT),
@@ -223,14 +232,14 @@ class WavefrontEncoder:
         dc_y = torch.arange(B * B, device=dev) == 0
         dc_c = torch.arange(Bc * Bc, device=dev) == 0
         pq = [torch.as_tensor(pq_array(p), device=dev) for p in self.pq]
-        ry = torch.zeros((H, W), dtype=torch.uint8, device=dev)
-        ru = torch.zeros((H // 2, W // 2), dtype=torch.uint8, device=dev)
-        rv = torch.zeros((H // 2, W // 2), dtype=torch.uint8, device=dev)
+        ry = torch.zeros((N, H, W), dtype=torch.uint8, device=dev)
+        ru = torch.zeros((N, H // 2, W // 2), dtype=torch.uint8, device=dev)
+        rv = torch.zeros((N, H // 2, W // 2), dtype=torch.uint8, device=dev)
         nblk = nbr * nbc
-        out_mode = torch.zeros(nblk, dtype=torch.int64, device=dev)
-        out_q = torch.zeros((nblk, B * B + 2 * Bc * Bc), dtype=torch.int32,
-                            device=dev)
-        out_eob = torch.zeros((nblk, 3), dtype=torch.int64, device=dev)
+        out_mode = torch.zeros((N, nblk), dtype=torch.int64, device=dev)
+        out_q = torch.zeros((N, nblk, B * B + 2 * Bc * Bc),
+                            dtype=torch.int32, device=dev)
+        out_eob = torch.zeros((N, nblk, 3), dtype=torch.int64, device=dev)
         for blocks in waves:
             rr = torch.as_tensor([r for r, _ in blocks], device=dev)
             cc = torch.as_tensor([x for _, x in blocks], device=dev)
@@ -245,27 +254,36 @@ class WavefrontEncoder:
                 rv, src_v, ys // 2, xs // 2, Bc, scan_c, dc_c, pq[2],
                 c.TX_8X8, 1, self.lam)
             bid = rr * nbc + cc
-            out_mode[bid] = best
-            out_q[bid] = torch.cat([qy, qu, qv], 1)
-            out_eob[bid] = torch.stack([eoby, eobu, eobv], 1)
-        modes = np.asarray(WAVE_MODES, np.int16)[out_mode.cpu().numpy()]
-        q = out_q.to(torch.int16).cpu().numpy()
-        eobs = out_eob.to(torch.int16).cpu().numpy()
-        r390 = np.zeros((nblk, 390), np.int16)
-        r390[:, 0] = modes
-        r390[:, 1:4] = eobs
-        r390[:, 6:390] = q
+            out_mode[:, bid] = best
+            out_q[:, bid] = torch.cat([qy, qu, qv], 2)
+            out_eob[:, bid] = torch.stack([eoby, eobu, eobv], 2)
+        modes_all = np.asarray(WAVE_MODES, np.int16)[out_mode.cpu().numpy()]
+        q_all = out_q.to(torch.int16).cpu().numpy()
+        eobs_all = out_eob.to(torch.int16).cpu().numpy()
+        recons = [p.cpu().numpy() for p in (ry, ru, rv)]
         Bq, Bcq = B * B, Bc * Bc
-        results = {}
-        for b in range(nblk):
-            r, x = divmod(b, nbc)
-            results[(r, x)] = dict(
-                y_mode=int(modes[b]), qy=q[b, :Bq],
-                qu=q[b, Bq:Bq + Bcq], qv=q[b, Bq + Bcq:],
-                eoby=int(eobs[b, 0]), eobu=int(eobs[b, 1]),
-                eobv=int(eobs[b, 2]))
-        recon = (ry.cpu().numpy(), ru.cpu().numpy(), rv.cpu().numpy())
-        return results, r390, recon
+        out = []
+        for i in range(N):
+            modes, q, eobs = modes_all[i], q_all[i], eobs_all[i]
+            r390 = np.zeros((nblk, 390), np.int16)
+            r390[:, 0] = modes
+            r390[:, 1:4] = eobs
+            r390[:, 6:390] = q
+            results = {}
+            for b in range(nblk):
+                r, x = divmod(b, nbc)
+                results[(r, x)] = dict(
+                    y_mode=int(modes[b]), qy=q[b, :Bq],
+                    qu=q[b, Bq:Bq + Bcq], qv=q[b, Bq + Bcq:],
+                    eoby=int(eobs[b, 0]), eobu=int(eobs[b, 1]),
+                    eobv=int(eobs[b, 2]))
+            out.append((results, r390, tuple(p[i] for p in recons)))
+        return out
+
+    def encode_frame_raw(self, planes):
+        """One frame's (y, u, v) -> (results dict, res390, recon planes):
+        a batch of one."""
+        return self.encode_frames_raw([planes])[0]
 
     def encode_frame(self, src_planes):
         """src_planes: (y, u, v) padded to B multiples.  Returns per-block

@@ -29,6 +29,19 @@
    port's decoder; the decoder's reference slots must equal the encoder's
    recon slots byte for byte.
 
+5. Drives the other device paths, each with the launch counters reset just
+   before it and read just after, each decoded with the port's decoder
+   and held against the encoder's recon (or, lossless, the source):
+   the device-RDO KEY in the default configuration at 720x576 and 352x288
+   (with the trial sweep of a 720x576 plane timed on its own), low delay
+   and realtime at 1920x1088, GOPs with short groups (gf_length 2,
+   use_arf off) at 352x288, lossless at 1920x1088, the first pass and the
+   two-pass encode at 1920x1088, and the batched all-intra entry at
+   1920x1088 with 4 frames beside 1.
+6. Runs every one of those paths at 96x64 on the card and on the CPU: the
+   streams must be equal byte for byte and the first-pass stats equal to
+   1e-5.
+
 With --warm N each configuration's slice is run N more times and the
 stage medians are printed; with --profile one more default-configuration
 slice runs under torch.profiler and the device time of each hand kernel
@@ -43,15 +56,20 @@ that line, on any failure, and when no CUDA device is available.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 W, H, N_FRAMES, QINDEX = 1920, 1088, 8, 120
+#: the largest frame whose KEY takes the device RDO, padded to the 64-pixel
+#: superblock as the trial engine pads it
+RDO_W, RDO_H = 768, 576
 PADR = 64
 KW_DEFAULT = dict(qindex=QINDEX, gf_length=8, use_tpu=True,
                   enable_cdef=False)
@@ -360,6 +378,29 @@ def _cases(dev):
         cases.append(("quantize_b_vec", "quantize_b_vec",
                       f"n{n} rows{rows} random-params",
                       (coeff, *par, log_scale), ops))
+    # K4 at the shapes of the device-RDO trials of a 720x576 KEY (the plane
+    # padded to 768x576; every block of a geometry under all 61 modes in
+    # one launch: 4x4, 8x8, 16x8, 16x16, 32x16, 32x32, 64x32, 64x64), of
+    # its chroma DC trials (one mode), and of one wave of the batched
+    # all-intra entry at 1080p (4 frames x the longest wave's 68 blocks x 7
+    # modes, and its chroma)
+    for n, rows, log_scale, what in (
+            [(bw * bh if bw * bh < 1024 else 1024,
+              RDO_W // bw * (RDO_H // bh) * 61, ls, f"rdo {bw}x{bh} x61")
+             for bw, bh, ls in ((4, 4, 0), (8, 8, 0), (16, 8, 0),
+                                (16, 16, 0), (32, 16, 1), (32, 32, 1),
+                                (64, 32, 2), (64, 64, 2))]
+            + [(64, RDO_W // 16 * (RDO_H // 16), 0, "rdo chroma 8x8 dc"),
+               (256, 4 * 68 * 7, 0, "intra batch 4 frames, wave of 68 x7"),
+               (64, 4 * 68, 0, "intra batch 4 frames, chroma wave")]):
+        coeff = t(rng.integers(-(1 << 15), 1 << 15, (rows, n))
+                  .astype(np.int32))
+        dc = np.arange(n) == 0
+        par = [t(np.where(dc, row[0], row[1]).astype(np.int32))
+               for row in pq]
+        cases.append(("quantize_b_vec", "quantize_b_vec",
+                      f"n{n} rows{rows} ls{log_scale} ({what})",
+                      (coeff, *par, log_scale), (16 * rows * n, "int32")))
     return cases
 
 
@@ -368,12 +409,16 @@ def bound_ms(args, outs, operations):
     (each input read once, each output written once) at the card's memory
     rate and the operations at the peak rate of their type."""
     import torch
-    nbytes = sum(a.numel() * a.element_size() for a in (*args, *outs)
-                 if isinstance(a, torch.Tensor))
     count, kind = operations
-    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+    t_bytes = moved_bytes(args, outs) / MEM_BYTES_PER_S * 1e3
     t_ops = count / OPS_PER_S[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def moved_bytes(args, outs) -> int:
+    import torch
+    return sum(a.numel() * a.element_size() for a in (*args, *outs)
+               if isinstance(a, torch.Tensor))
 
 
 def phase_kernels(dev) -> dict:
@@ -385,11 +430,11 @@ def phase_kernels(dev) -> dict:
     recs = {name: dict(name=name, route="cuda", source=src, replaces=rep,
                        max_abs_err=0.0, ms=None, plain_ms=None,
                        bound_ms=None, bound_by=None, library_ms=None,
-                       graph_ms=None)
+                       graph_ms=None, cases=[])
             for name, (src, rep, _, _) in KERNELS.items()}
     log(f"{'kernel':<15} {'entry and shape':<47} {'max_err':>7} "
         f"{'kernel ms':>10} {'graph ms':>9} {'plain ms':>10} "
-        f"{'bound ms':>9} by")
+        f"{'bound ms':>9} by {'bytes':>12} {'operations':>12}")
     n_cases = 0
     for name, fn, label, args, operations in _cases(dev):
         wrapper = getattr(K, fn)
@@ -411,9 +456,15 @@ def phase_kernels(dev) -> dict:
         g_ms = graph_ms(lambda: wrapper(*args))
         plain_ms = cuda_ms(lambda: plain(*args), reps=3)
         b_ms, b_by = bound_ms(args, got, operations)
+        nbytes = moved_bytes(args, got)
         log(f"{name:<15} {label:<47} {err:>7g} {ms:>10.4f} {g_ms:>9.4f} "
-            f"{plain_ms:>10.4f} {b_ms:>9.4f} {b_by}")
+            f"{plain_ms:>10.4f} {b_ms:>9.4f} {b_by:<10} {nbytes:>12d} "
+            f"{operations[0]:>12d}")
         rec = recs[name]
+        rec["cases"].append(dict(
+            shape=f"{fn} {label}", ms=round(ms, 5), graph_ms=round(g_ms, 5),
+            plain_ms=round(plain_ms, 4), bound_ms=round(b_ms, 5),
+            bound_by=b_by, bytes=nbytes, operations=operations[0]))
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         if rec["ms"] is None:          # the first case is the headline one
             rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -722,6 +773,441 @@ def phase_decode(dev, frames, w, h, label, kw) -> None:
         f"planes equal the encoder recon")
 
 
+# ---------------------------------------------------------------------------
+# the other device paths
+
+
+@contextlib.contextmanager
+def instances_of(cls, method: str, seconds=None):
+    """Collects the instances of `cls` on which `method` is called while
+    the block runs (the encoders an entry point builds inside itself),
+    and each call's host seconds into `seconds` when given (for a method
+    that returns with its results on the host)."""
+    seen = []
+    orig = getattr(cls, method)
+
+    def spy(self, *a, **k):
+        if not any(self is s for s in seen):
+            seen.append(self)
+        t0 = time.perf_counter()
+        try:
+            return orig(self, *a, **k)
+        finally:
+            if seconds is not None:
+                seconds.append(time.perf_counter() - t0)
+
+    setattr(cls, method, spy)
+    try:
+        yield seen
+    finally:
+        setattr(cls, method, orig)
+
+
+def read_payloads(path):
+    from aom_av1_lavish_torch.bitstream.ivf import read_ivf
+    return [p for p, _ in read_ivf(path)]
+
+
+def decode_payloads(payloads):
+    """-> (shown frames, decoder state) of the port's decoder."""
+    from aom_av1_lavish_torch.decoder.decoder import decode_frame_obus
+    sh, state, shown = None, {"slots": [None] * 8}, []
+    for p in payloads:
+        if p:
+            fr, sh = decode_frame_obus(p, sh, state)
+            shown.extend(fr)
+    return shown, state
+
+
+def require_planes_equal(what, got, want) -> int:
+    """Each plane of `got` equals that of `want` over want's extent."""
+    import numpy as np
+    n = 0
+    for g, w in zip(got, want):
+        g, w = np.asarray(g), np.asarray(w)
+        if not np.array_equal(g[:w.shape[0], :w.shape[1]], w):
+            raise AssertionError(f"{what}: plane {n} differs")
+        n += 1
+    if n == 0:
+        raise AssertionError(f"{what}: nothing to compare")
+    return n
+
+
+def require_slots_equal(what, enc_slots, state) -> int:
+    n = 0
+    for slot in range(8):
+        if enc_slots[slot] is not None:
+            n += require_planes_equal(f"{what} slot {slot}",
+                                      state["slots"][slot]["planes"],
+                                      enc_slots[slot])
+    if n == 0:
+        raise AssertionError(f"{what}: no recon slots to compare")
+    return n
+
+
+def timed_path(label, fn, expected=None, need=()):
+    """Runs one path with the launch counters set to 0 just before it and
+    read just after; `expected` fixes counts, `need` names kernels that
+    must have launched -> (fn's result, seconds, launches)."""
+    import torch
+
+    from aom_av1_lavish_torch.ops import kernels as K
+    from aom_av1_lavish_torch.utils import profiler
+
+    profiler.enable()
+    profiler.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES, **K.ENTRY_LAUNCHES)
+    stages = profiler.times()
+    profiler.enable(False)
+    missing = [k for k in need if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels not launched: {missing}")
+    wrong = {k: (launches.get(k, 0), v) for k, v in (expected or {}).items()
+             if launches.get(k, 0) != v}
+    if wrong:
+        raise AssertionError(f"{label}: launches (counted, expected) {wrong}")
+    log(f"path {label}: {secs:.3f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; launches "
+        f"{json.dumps(launches)}")
+    for k, v in sorted(stages.items(), key=lambda kv: -kv[1]):
+        if k.startswith(("gop/", "rdo/")):
+            log(f"  stage {k:<20} {v:8.3f} s")
+    return out, secs, launches
+
+
+ALL_KERNELS = ("gather_windows", "ssd_surface", "convolve_8tap",
+               "quantize_b_vec")
+#: per 1080p P frame over one reference with 1/8-pel MVs: 22 sub-pel
+#: predictions, 3 snap candidates and 2 chroma planes (27), and 7 per merge
+#: level (5 candidates, 2 chroma planes); K4 once per plane and level; a KEY
+#: is 187 waves x 3 planes
+K3_FIXED16, K3_MERGE, K4_KEY = 27, 27 + 2 * 7, 187 * 3
+
+
+def phase_rdo_key(dev, tmp) -> dict:
+    """The default configuration where the KEY takes the device RDO: 8
+    frames at 720x576 (the largest such frame) and at 352x288, decoded;
+    and the trial sweep of one padded 720x576 luma plane on its own."""
+    import numpy as np
+    import torch
+
+    from aom_av1_lavish_torch.encoder.gop import TorchGopEncoder
+    from aom_av1_lavish_torch.encoder.tpu_rdo import TpuRdoAllIntraEncoder
+    from aom_av1_lavish_torch.ops.rdo_intra import IntraTrialEngine
+    from aom_av1_lavish_torch.utils.clips import make_frames
+
+    out = {}
+    for w, h in ((720, 576), (352, 288)):
+        frames = make_frames(N_FRAMES, w, h)
+
+        def run():
+            with instances_of(TpuRdoAllIntraEncoder, "encode_frame") as keys:
+                enc = TorchGopEncoder(w, h, device=dev, **KW_DEFAULT)
+                payloads = enc.encode_sequence(frames)
+            if len(keys) != 1:
+                raise AssertionError(f"{len(keys)} device-RDO KEYs")
+            return enc, payloads
+
+        # 11 luma geometries and their 10 chroma ones (4x4 has none) on
+        # each of 2 planes, then a 1-frame ARF chain and 6 P frames, 9
+        # quantizer calls each
+        (enc, payloads), _, launches = timed_path(
+            f"device-RDO KEY GOP {w}x{h}", run, need=ALL_KERNELS,
+            expected={"quantize_b_vec": 11 + 2 * 10 + 7 * 9})
+        shown, state = decode_payloads(payloads)
+        if len(shown) != N_FRAMES:
+            raise AssertionError(f"decoded {len(shown)} frames")
+        n = require_slots_equal(f"device-RDO GOP {w}x{h}", enc.slots, state)
+        log(f"  decode {w}x{h}: {len(shown)} frames; {n} slot planes equal "
+            "the encoder recon")
+        out[f"rdo_gop_{w}x{h}"] = launches
+    # the sweep alone, every geometry of a 768x576 plane, inputs on the card
+    rng = np.random.default_rng(2)
+    plane = rng.integers(0, 256, (RDO_H, RDO_W)).astype(np.uint8)
+    eng = IntraTrialEngine(QINDEX, device=dev)
+    sizes = [(4, 4), (8, 8), (16, 16), (32, 32), (64, 64), (16, 8), (8, 16),
+             (32, 16), (16, 32), (64, 32), (32, 64)]
+    t0 = time.perf_counter()
+    prep = eng.prepare(plane, sizes, lambda y, x, bh, bw: 50.0)
+    t_prep = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: eng.sweep(prep), reps=3)
+    log(f"trial sweep {RDO_W}x{RDO_H}, 11 geometries x 61 modes: "
+        f"{ms / 1e3:.4f} s on the card per sweep (CUDA events, results "
+        f"copied back); host preparation {t_prep:.3f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    return out
+
+
+def phase_lowdelay(dev, tmp, frames) -> dict:
+    """encode_tpu_lowdelay_ivf at 1920x1088, 4 frames."""
+    from aom_av1_lavish_torch.encoder.tpu_inter import (
+        TpuLowDelayEncoder, encode_tpu_lowdelay_ivf)
+
+    path = os.path.join(tmp, "lowdelay.ivf")
+    per_frame = []
+
+    def run():
+        with instances_of(TpuLowDelayEncoder, "encode_frame",
+                          per_frame) as encs:
+            encode_tpu_lowdelay_ivf(path, frames, W, H, qindex=60,
+                                    device=dev)
+        return encs[0]
+
+    n_p = len(frames) - 1
+    enc, secs, launches = timed_path(
+        f"low delay {W}x{H}, {len(frames)} frames", run, need=ALL_KERNELS,
+        expected={"ssd_surface": 2 * n_p, "avl_block_ssd_at": n_p,
+                  "avl_gather_windows": 0,
+                  "convolve_8tap": K3_MERGE * n_p,
+                  "quantize_b_vec": K4_KEY + 9 * n_p})
+    shown, state = decode_payloads(read_payloads(path))
+    n = require_slots_equal("low delay", enc.slots, state)
+    log(f"  decode: {len(shown)} frames; {n} slot planes equal the encoder "
+        f"recon; KEY {per_frame[0]:.3f} s, P frames "
+        f"{[round(x, 3) for x in per_frame[1:]]} s each (device encode, "
+        "host deblock and emit)")
+    return {"lowdelay": launches}
+
+
+def phase_realtime(dev, tmp, frames) -> dict:
+    """encode_realtime_tpu_ivf at 1920x1088, 4 frames; every decoded P
+    frame equals the recon of the same stream stepped once more."""
+    from aom_av1_lavish_torch.encoder.nonrd import encode_realtime_tpu_ivf
+    from aom_av1_lavish_torch.ops.inter import DeviceRtEncoder
+
+    from aom_av1_lavish_torch.encoder.tpu_intra import TorchAllIntraEncoder
+
+    path = os.path.join(tmp, "realtime.ivf")
+    n_p = len(frames) - 1
+    key_secs = []
+
+    def run():
+        with instances_of(TorchAllIntraEncoder, "encode_frame", key_secs):
+            encode_realtime_tpu_ivf(path, frames, W, H, qindex=90,
+                                    device=dev)
+
+    _, secs, launches = timed_path(
+        f"realtime {W}x{H}, {len(frames)} frames", run,
+        need=ALL_KERNELS,
+        expected={"ssd_surface": 2 * n_p, "avl_block_ssd_at": n_p,
+                  "avl_gather_windows": 0,
+                  "convolve_8tap": K3_FIXED16 * n_p,
+                  "quantize_b_vec": K4_KEY + 3 * n_p})
+    shown, _ = decode_payloads(read_payloads(path))
+    if len(shown) != len(frames):
+        raise AssertionError(f"decoded {len(shown)} frames")
+    rt = DeviceRtEncoder(90, device=dev)
+    rt.reset_ref(shown[0][:3])
+    t0 = time.perf_counter()
+    for f, dec in zip(frames[1:], shown[1:]):
+        rt.encode_frame(f)
+        require_planes_equal("realtime P frame", rt.fetch_recon(H, W),
+                             dec[:3])
+    step = (time.perf_counter() - t0) / n_p
+    log(f"  decode: {len(shown)} frames, every P frame equals the device "
+        f"recon; KEY {key_secs[0]:.3f} s, then "
+        f"{(secs - key_secs[0]) / n_p:.3f} s per P frame in the stream "
+        f"(step, copy and emit, one frame in flight); {step:.3f} s per P "
+        "frame stepped alone with its recon fetched")
+    return {"realtime": launches}
+
+
+def phase_short_groups(dev) -> dict:
+    """GOPs whose groups hold no ARF at 352x288: gf_length 2 at cpu_used 8
+    and use_arf off in the default configuration (single P frames through
+    TpuInterFrameEncoder's own device encode)."""
+    from aom_av1_lavish_torch.encoder.gop import TorchGopEncoder
+    from aom_av1_lavish_torch.utils.clips import make_frames
+
+    frames = make_frames(N_FRAMES, 352, 288)
+    out = {}
+    for name, kw in (("gf_length 2", dict(KW_CPU8, gf_length=2)),
+                     ("use_arf off", dict(KW_DEFAULT, use_arf=False))):
+        def run():
+            enc = TorchGopEncoder(352, 288, device=dev, **kw)
+            return enc, enc.encode_sequence(frames)
+
+        (enc, payloads), _, launches = timed_path(
+            f"short groups ({name}) 352x288", run, need=ALL_KERNELS,
+            expected={"avl_block_ssd_at": N_FRAMES - 1,
+                      "avl_gather_windows": 0,
+                      "ssd_surface": 2 * (N_FRAMES - 1)})
+        shown, state = decode_payloads(payloads)
+        if len(shown) != N_FRAMES:
+            raise AssertionError(f"decoded {len(shown)} frames")
+        n = require_slots_equal(name, enc.slots, state)
+        log(f"  decode: {len(shown)} frames; {n} slot planes equal the "
+            "encoder recon")
+        out[name] = launches
+    return out
+
+
+def phase_lossless(dev, tmp, frames) -> dict:
+    """encode_lossless_ivf at 1920x1088: the decoder returns the source.
+    Its device work is integer adds and shifts outside any kernel."""
+    from aom_av1_lavish_torch.encoder import encode_lossless_ivf
+
+    path = os.path.join(tmp, "lossless.ivf")
+    _, secs, launches = timed_path(
+        f"lossless {W}x{H}, {len(frames)} frames",
+        lambda: encode_lossless_ivf(path, frames, W, H, device=dev),
+        expected={k: 0 for k in ALL_KERNELS})
+    shown, _ = decode_payloads(read_payloads(path))
+    if len(shown) != len(frames):
+        raise AssertionError(f"decoded {len(shown)} frames")
+    for f, dec in zip(frames, shown):
+        require_planes_equal("lossless", dec[:3], f)
+    log(f"  decode: {len(shown)} frames equal the source; "
+        f"{secs / len(frames):.3f} s per frame, "
+        f"{os.path.getsize(path)} bytes")
+    return {"lossless": launches}
+
+
+def phase_twopass(dev, tmp, frames) -> dict:
+    """first_pass over the 8 frames at 1920x1088, then encode_twopass_ivf
+    (which runs it again and reads the stats back from its file)."""
+    from aom_av1_lavish_torch.encoder.firstpass import first_pass, load_stats
+    from aom_av1_lavish_torch.encoder.gop import (GopEncoder,
+                                                  encode_twopass_ivf)
+
+    stats, secs, fp_launches = timed_path(
+        f"first pass {W}x{H}, {len(frames)} frames",
+        lambda: first_pass(frames, device=dev),
+        expected={"avl_ssd_surface_plane": len(frames),
+                  "ssd_surface": len(frames), "gather_windows": 0,
+                  "convolve_8tap": 0, "quantize_b_vec": 0})
+    for s in stats:
+        log(f"  stats frame {int(s.frame)}: intra {s.intra_error:.6g} coded "
+            f"{s.coded_error:.6g} inter {s.pcnt_inter:.4f} motion "
+            f"{s.pcnt_motion:.4f} |mv| {s.mv_mag:.4f}")
+    if not all(s.pcnt_inter > 0.5 for s in stats[1:]):
+        raise AssertionError("first pass: the pan's frames are not inter")
+    path = os.path.join(tmp, "twopass.ivf")
+
+    def run():
+        with instances_of(GopEncoder, "encode_sequence") as encs:
+            encode_twopass_ivf(path, frames, W, H, device=dev,
+                               stats_path=os.path.join(tmp, "fpstats"),
+                               **KW_DEFAULT)
+        return encs[0]
+
+    enc, secs2, launches = timed_path(f"two-pass {W}x{H}, {len(frames)} "
+                                      "frames", run, need=ALL_KERNELS)
+    back = load_stats(os.path.join(tmp, "fpstats"))
+    if [s.to_array().tolist() for s in back] != \
+            [s.to_array().tolist() for s in stats]:
+        raise AssertionError("two-pass: the stats file differs from the "
+                             "first pass run before it")
+    shown, state = decode_payloads(read_payloads(path))
+    if len(shown) != len(frames):
+        raise AssertionError(f"decoded {len(shown)} frames")
+    n = require_slots_equal("two-pass", enc.slots, state)
+    log(f"  decode: {len(shown)} frames; {n} slot planes equal the encoder "
+        f"recon; first pass {secs / len(frames):.4f} s per frame")
+    return {"first_pass": fp_launches, "twopass": launches}
+
+
+def phase_intra_batch(dev, tmp, frames) -> dict:
+    """encode_tpu_ivf at 1920x1088: 4 frames in one batch beside 1 frame
+    through the same entry, in turns (1, 4, 4, 1)."""
+    import numpy as np
+
+    from aom_av1_lavish_torch.encoder.tpu_intra import (TorchAllIntraEncoder,
+                                                        encode_tpu_ivf)
+
+    path = os.path.join(tmp, "intra_batch.ivf")
+
+    def run(n):
+        def go():
+            with instances_of(TorchAllIntraEncoder, "_encode_tile") as encs:
+                encode_tpu_ivf(path, frames[:n], W, H, qindex=QINDEX,
+                               device=dev)
+            return encs
+        return timed_path(f"batched all-intra {W}x{H}, {n} frame(s)", go,
+                          expected={"quantize_b_vec": K4_KEY,
+                                    "gather_windows": 0, "ssd_surface": 0,
+                                    "convolve_8tap": 0})
+
+    n = len(frames)
+    _, one_a, _ = run(1)
+    _, many_a, _ = run(n)
+    encs, many_b, launches = run(n)
+    shown, _ = decode_payloads(read_payloads(path))
+    if len(shown) != n or len(encs) != n:
+        raise AssertionError(f"decoded {len(shown)} frames of {len(encs)}")
+    for enc, f, dec in zip(encs, frames, shown):
+        require_planes_equal("batched all-intra", enc.recon, dec[:3])
+        mse = np.mean((np.asarray(dec[0], np.float64) - f[0]) ** 2)
+        if not 10 * np.log10(255.0 ** 2 / max(mse, 1e-9)) > 30.0:
+            raise AssertionError("batched all-intra: luma PSNR under 30 dB")
+    _, one_b, _ = run(1)
+    one, many = (one_a + one_b) / 2, (many_a + many_b) / 2
+    log(f"  decode: {n} frames equal the encoders' recon; {n} frames in one "
+        f"batch {many:.3f} s ({many_a:.3f}, {many_b:.3f}) beside {n} x one "
+        f"frame {n * one:.3f} s ({one_a:.3f}, {one_b:.3f} each)")
+    return {"intra_batch": launches}
+
+
+def phase_card_vs_cpu(dev, tmp) -> None:
+    """Every new path at 96x64 on the card and on the CPU: the same bytes
+    (the first-pass stats to 1e-5)."""
+    import numpy as np
+
+    from aom_av1_lavish_torch.encoder import encode_lossless_ivf
+    from aom_av1_lavish_torch.encoder.firstpass import first_pass
+    from aom_av1_lavish_torch.encoder.gop import (encode_gop_ivf,
+                                                  encode_twopass_ivf)
+    from aom_av1_lavish_torch.encoder.nonrd import encode_realtime_tpu_ivf
+    from aom_av1_lavish_torch.encoder.tpu_inter import encode_tpu_lowdelay_ivf
+    from aom_av1_lavish_torch.encoder.tpu_intra import encode_tpu_ivf
+    from aom_av1_lavish_torch.encoder.tpu_rdo import encode_tpu_rdo_ivf
+    from aom_av1_lavish_torch.utils.clips import make_frames
+
+    w, h = 96, 64
+    frames = make_frames(N_FRAMES, w, h)
+    paths = (
+        ("device-RDO all-intra", encode_tpu_rdo_ivf, frames[:2],
+         dict(qindex=80)),
+        ("default GOP (device-RDO KEY)", encode_gop_ivf, frames, KW_DEFAULT),
+        ("low delay", encode_tpu_lowdelay_ivf, frames[:4], dict(qindex=60)),
+        ("realtime", encode_realtime_tpu_ivf, frames[:4], dict(qindex=90)),
+        ("gf_length 2", encode_gop_ivf, frames, dict(KW_CPU8, gf_length=2)),
+        ("use_arf off", encode_gop_ivf, frames,
+         dict(KW_CPU8, use_arf=False)),
+        ("lossless", encode_lossless_ivf, frames[:2], {}),
+        ("two-pass", encode_twopass_ivf, frames, KW_DEFAULT),
+        ("batched all-intra", encode_tpu_ivf, frames[:3], dict(qindex=100)),
+    )
+    for name, fn, clip, kw in paths:
+        got = []
+        for device in (dev, "cpu"):
+            path = os.path.join(tmp, f"small_{device}.ivf")
+            fn(path, clip, w, h, device=device, **kw)
+            with open(path, "rb") as f:
+                got.append(f.read())
+        if got[0] != got[1] or len(got[0]) <= 32:
+            raise AssertionError(f"{name} at {w}x{h}: the card's stream "
+                                 f"({len(got[0])} bytes) differs from the "
+                                 f"CPU's ({len(got[1])} bytes)")
+        log(f"card vs CPU {w}x{h} {name}: {len(got[0])} bytes, equal")
+    a = np.stack([s.to_array() for s in first_pass(frames, device=dev)])
+    b = np.stack([s.to_array() for s in first_pass(frames, device="cpu")])
+    if not np.allclose(a, b, rtol=1e-5, atol=0):
+        raise AssertionError("first pass at 96x64: the card's stats differ "
+                             "from the CPU's beyond 1e-5")
+    log(f"card vs CPU {w}x{h} first pass: stats agree to 1e-5 "
+        f"(max relative difference "
+        f"{float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30))):.2e})")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--warm", type=int, default=0, metavar="N",
@@ -773,13 +1259,28 @@ def main() -> int:
     phase_decode(dev, make_frames(N_FRAMES, 768, 576), 768, 576, "default",
                  KW_DEFAULT)
 
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    by_path = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        by_path.update(phase_rdo_key(dev, tmp))
+        by_path.update(phase_lowdelay(dev, tmp, frames[:4]))
+        by_path.update(phase_realtime(dev, tmp, frames[:4]))
+        by_path.update(phase_short_groups(dev))
+        by_path.update(phase_lossless(dev, tmp, frames[:2]))
+        by_path.update(phase_twopass(dev, tmp, frames))
+        by_path.update(phase_intra_batch(dev, tmp, frames[:4]))
+        phase_card_vs_cpu(dev, tmp)
+
     # launches: the default-configuration slice's (this script's main
-    # path), K1's two entries apart; the cpu_used 8 slice's beside them
+    # path), K1's two entries apart; the cpu_used 8 slice's and each other
+    # path's beside them
     kernels = []
     for name, rec in recs.items():
         key = KERNELS[name][3]
-        kernels.append(dict(rec, launches=launches.get(key, 0),
-                            launches_cpu_used_8=launches8.get(key, 0)))
+        kernels.append(dict(
+            rec, launches=launches.get(key, 0),
+            launches_cpu_used_8=launches8.get(key, 0),
+            launches_by_path={p: v.get(key, 0) for p, v in by_path.items()}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

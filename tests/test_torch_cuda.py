@@ -248,3 +248,124 @@ def test_cuda_gop_with_tpl_and_tf_matches_decoder(cuda_device):
 def test_cuda_entry_points_default_to_the_card(cuda_device):
     from aom_av1_lavish_torch.ops.inter import DeviceChainEncoder
     assert DeviceChainEncoder().device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,rows,log_scale", [
+    (16, 27648 * 61, 0), (64, 6912 * 61, 0), (128, 3456 * 61, 0),
+    (256, 1728 * 61, 0), (512, 864 * 61, 1), (1024, 432 * 61, 1),
+    (1024, 216 * 61, 2), (1024, 108 * 61, 2), (256, 4 * 68 * 7, 0),
+    (64, 4 * 68, 0)])
+def test_cuda_quantize_matches_plain_at_the_trial_and_batch_shapes(
+        cuda_device, n, rows, log_scale):
+    """K4 on the card, exact, at the shapes of the device-RDO trials of a
+    720x576 KEY (every block of a geometry under 61 modes) and of one wave
+    of the batched all-intra entry at 1080p (4 frames)."""
+    from aom_av1_lavish_torch.common import quant as Q
+    from aom_av1_lavish_torch.ops.wavefront import pq_array, quantize
+    rng = np.random.default_rng(n + log_scale)
+    coeff = torch.as_tensor(rng.integers(-(1 << 15), 1 << 15, (rows, n))
+                            .astype(np.int32), device=cuda_device)
+    pq = torch.as_tensor(pq_array(Q.build_plane_quant(120, 0, 0)),
+                         device=cuda_device)
+    dc = torch.arange(n, device=cuda_device) == 0
+    before = K.LAUNCHES["quantize_b_vec"]
+    q, dq = quantize(coeff, pq, log_scale, dc)
+    assert K.LAUNCHES["quantize_b_vec"] == before + 1
+    qc, dqc = quantize(coeff.cpu(), pq.cpu(), log_scale, dc.cpu())
+    assert torch.equal(q.cpu(), qc) and torch.equal(dq.cpu(), dqc)
+
+
+def _new_paths():
+    from aom_av1_lavish_torch.encoder import encode_lossless_ivf
+    from aom_av1_lavish_torch.encoder.gop import (encode_gop_ivf,
+                                                  encode_twopass_ivf)
+    from aom_av1_lavish_torch.encoder.nonrd import encode_realtime_tpu_ivf
+    from aom_av1_lavish_torch.encoder.tpu_inter import encode_tpu_lowdelay_ivf
+    from aom_av1_lavish_torch.encoder.tpu_intra import encode_tpu_ivf
+    from aom_av1_lavish_torch.encoder.tpu_rdo import encode_tpu_rdo_ivf
+    gop = dict(qindex=120, gf_length=8, use_tpu=True, enable_cdef=False)
+    # name -> (entry, frames, keywords, kernels its path must launch)
+    every = ("gather_windows", "ssd_surface", "convolve_8tap",
+             "quantize_b_vec")
+    return {
+        "device_rdo": (encode_tpu_rdo_ivf, 2, dict(qindex=80),
+                       ("quantize_b_vec",)),
+        "default_gop": (encode_gop_ivf, 8, gop, every),
+        "lowdelay": (encode_tpu_lowdelay_ivf, 4, dict(qindex=60), every),
+        "realtime": (encode_realtime_tpu_ivf, 4, dict(qindex=90), every),
+        "gf_length_2": (encode_gop_ivf, 8,
+                        dict(gop, cpu_used=8, gf_length=2), every),
+        "use_arf_off": (encode_gop_ivf, 8,
+                        dict(gop, cpu_used=8, use_arf=False), every),
+        "lossless": (encode_lossless_ivf, 2, {}, ()),
+        "twopass": (encode_twopass_ivf, 8, gop, every),
+        "intra_batch": (encode_tpu_ivf, 3, dict(qindex=100),
+                        ("quantize_b_vec",)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["device_rdo", "default_gop", "lowdelay",
+                                  "realtime", "gf_length_2", "use_arf_off",
+                                  "lossless", "twopass", "intra_batch"])
+def test_cuda_path_writes_the_stream_of_the_cpu_run(cuda_device, tmp_path,
+                                                    name):
+    """Each device path at 96x64 on the card: the kernels of its path
+    launch, and the IVF equals the same entry's with device="cpu" byte for
+    byte."""
+    from aom_av1_lavish_torch.utils.clips import make_frames
+    fn, n, kw, kernels = _new_paths()[name]
+    frames = make_frames(n, 96, 64)
+    out = []
+    for device in (cuda_device, "cpu"):
+        path = str(tmp_path / f"{device}.ivf")
+        K.reset_launches()
+        fn(path, frames, 96, 64, device=device, **kw)
+        launched = {k for k, v in K.LAUNCHES.items() if v > 0}
+        assert launched == (set(kernels) if device != "cpu" else set())
+        with open(path, "rb") as f:
+            out.append(f.read())
+    assert len(out[0]) > 32 and out[0] == out[1]
+
+
+@pytest.mark.cuda
+def test_cuda_first_pass_matches_the_cpu(cuda_device):
+    """first_pass on the card: one K2 launch (plane form) a frame, stats
+    equal to the CPU's to 1e-5."""
+    from aom_av1_lavish_torch.encoder.firstpass import first_pass
+    from aom_av1_lavish_torch.utils.clips import make_frames
+    frames = make_frames(5, 192, 128)
+    K.reset_launches()
+    got = first_pass(frames, device=cuda_device)
+    assert K.ENTRY_LAUNCHES == {"avl_ssd_surface_plane": 5}
+    want = first_pass(frames, device="cpu")
+    np.testing.assert_allclose(np.stack([s.to_array() for s in got]),
+                               np.stack([s.to_array() for s in want]),
+                               rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_realtime_rows_come_back_through_pinned_memory(cuda_device):
+    """DeviceRtEncoder on the card: the handle holds a pinned host tensor
+    and an event, a second frame can be enqueued before the first is
+    realized, and the rows equal the CPU's."""
+    from aom_av1_lavish_torch.ops.inter import DeviceRtEncoder
+    from aom_av1_lavish_torch.utils.clips import make_frames
+    frames = make_frames(3, 96, 64)
+    rows = {}
+    for device in (cuda_device, "cpu"):
+        enc = DeviceRtEncoder(90, device=device)
+        enc.reset_ref(frames[0])
+        h1 = enc.encode_frame_async(frames[1])
+        h2 = enc.encode_frame_async(frames[2])
+        if device != "cpu":
+            assert h1[0].is_pinned() and h1[1] is not None
+            assert enc.state[0].device.type == "cuda"
+        rows[str(device)] = (enc.realize(h1).copy(), enc.realize(h2).copy(),
+                             enc.fetch_recon(64, 96))
+    a, b = rows.values()
+    np.testing.assert_array_equal(a[0], b[0])
+    np.testing.assert_array_equal(a[1], b[1])
+    for pa, pb in zip(a[2], b[2]):
+        np.testing.assert_array_equal(pa, pb)

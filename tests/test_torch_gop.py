@@ -14,6 +14,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from aom_av1_lavish_tpu.bitstream.ivf import write_ivf
 from aom_av1_lavish_tpu.decoder import decode_ivf
@@ -27,6 +28,19 @@ W, H, N = 96, 64, 8
 KW = dict(qindex=120, gf_length=8, use_tpu=True, enable_cdef=False,
           cpu_used=8)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tests run in several worker processes on a few cores.  torch's
+    OpenMP pool, as wide as the machine in every worker, then waits at
+    each barrier for threads that are not scheduled (measured: the same
+    trial sweeps 50 times slower in six processes of eight threads than in
+    six of one), so this file computes on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _clip(n=N, w=W, h=H):
@@ -207,29 +221,79 @@ def test_ported_configurations_construct(kw):
     assert enc.device.type == "cpu"
 
 
+def _decodes_to_the_recon(enc, payloads, n):
+    sh, state, shown = None, {"slots": [None] * 8}, []
+    for p in payloads:
+        fr, sh = decode_frame_obus(p, sh, state)
+        shown.extend(fr)
+    assert len(shown) == n
+    compared = 0
+    for slot in range(8):
+        if enc.slots[slot] is None:
+            continue
+        for pe, pd in zip(enc.slots[slot], state["slots"][slot]["planes"]):
+            np.testing.assert_array_equal(pe, pd)
+            compared += 1
+    assert compared
+
+
 def test_short_gf_group_raises():
     """A 10-frame clip leaves a 1-frame group after the 8-frame one; the
-    reference codes it as a single P frame outside the chain."""
-    enc = TorchGopEncoder(W, H, device="cpu", **KW)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        enc.encode_sequence(_clip(n=10))
+    reference codes it as a single P frame outside the chain.  The port
+    raised here until DeviceInterEncoder was ported; now it codes it the
+    same way (through TpuInterFrameEncoder's own device encode) and
+    the decoder reproduces the recon."""
+    calls = []
+    orig = IT.DeviceInterEncoder.encode_frame_raw
+
+    def spy(self, *a, **k):
+        calls.append(self.device)
+        return orig(self, *a, **k)
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(IT.DeviceInterEncoder, "encode_frame_raw", spy)
+    try:
+        enc = TorchGopEncoder(W, H, device="cpu", **KW)
+        payloads = enc.encode_sequence(_clip(n=10))
+    finally:
+        mp.undo()
+    assert len(calls) == 1 and calls[0].type == "cpu"
+    assert len(payloads) == 10 and all(payloads)
+    _decodes_to_the_recon(enc, payloads, 10)
 
 
 def test_device_rdo_key_raises():
     """At <= 720x576 without a cpu_used above 6 the reference codes the
-    KEY with the device RDO, which is not ported yet."""
-    enc = TorchGopEncoder(W, H, device="cpu",
-                          **dict(KW, cpu_used=None, enable_tpl=False,
-                                 enable_tf=False))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        enc.encode_sequence(_clip(n=1))
+    KEY with the device RDO.  The port raised here until ops/rdo_intra was
+    ported; now it builds TpuRdoAllIntraEncoder and the decoder reproduces
+    the KEY's recon."""
+    from aom_av1_lavish_torch.encoder.tpu_rdo import TpuRdoAllIntraEncoder
+    built = []
+    orig = TpuRdoAllIntraEncoder.encode_frame
+
+    def spy(self, *a, **k):
+        built.append(self.device)
+        return orig(self, *a, **k)
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(TpuRdoAllIntraEncoder, "encode_frame", spy)
+    try:
+        enc = TorchGopEncoder(W, H, device="cpu",
+                              **dict(KW, cpu_used=None, enable_tpl=False,
+                                     enable_tf=False))
+        payloads = enc.encode_sequence(_clip(n=1))
+    finally:
+        mp.undo()
+    assert len(built) == 1 and built[0].type == "cpu"
+    _decodes_to_the_recon(enc, payloads, 1)
 
 
 # --- TPL and the ARF temporal filter through the GOP encoder --------------
 #
 # At 96x64 a configuration with cpu_used unset or <= 6 sends the KEY to the
-# device-RDO intra path (frames up to 720x576), which is not ported yet
-# (ROADMAP Queue 1 item 11), so the two tools are reached like this:
+# device-RDO intra path (frames up to 720x576; tests/test_torch_rdo.py holds
+# that configuration against the reference), so with the wavefront KEY of
+# the 1080p slice the two tools are reached like this:
 #   tf       cpu_used=7: wavefront KEY, temporal filter on, TPL off;
 #   tpl      cpu_used=8 (both off), then enable_tpl set on the encoder (the
 #            constructor lets a preset override the argument);

@@ -22,6 +22,19 @@ from aom_av1_lavish_torch.ops import kernels as K
 from aom_av1_lavish_torch.ops import wavefront as WT
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tests run in several worker processes on a few cores.  torch's
+    OpenMP pool, as wide as the machine in every worker, then waits at
+    each barrier for threads that are not scheduled (measured: the same
+    trial sweeps 50 times slower in six processes of eight threads than in
+    six of one), so this file computes on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def xla_path(monkeypatch):
     """The JAX functions' XLA fallbacks (no Pallas)."""

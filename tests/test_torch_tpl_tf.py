@@ -28,6 +28,19 @@ from aom_av1_lavish_torch.ops import inter as IT
 RTOL = 1e-6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tests run in several worker processes on a few cores.  torch's
+    OpenMP pool, as wide as the machine in every worker, then waits at
+    each barrier for threads that are not scheduled (measured: the same
+    trial sweeps 50 times slower in six processes of eight threads than in
+    six of one), so this file computes on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _clip(n=7, w=96, h=64, peak=90, pan=2, seed=3, sub=2):
     """A textured clip panning `pan` pixels a frame (0: static content
     under fresh noise), pixels in 0..peak; chroma subsampled by `sub`."""
