@@ -21,6 +21,7 @@ from .lossy import LossyAllIntraEncoder, make_lossy_frame_header
 from .encoder import make_sequence_header
 from ..ops.deblock import deblock_fixed16
 from ..ops.wavefront import WavefrontEncoder
+from ..utils.profiler import profile
 
 
 class TorchAllIntraEncoder(LossyAllIntraEncoder):
@@ -63,6 +64,10 @@ class TorchAllIntraEncoder(LossyAllIntraEncoder):
             self.recon[2][:rv.shape[0], :rv.shape[1]] = rv
 
     def _filter_recon(self, search: bool = True):
+        with profile("key/deblock"):
+            self._deblock(search)
+
+    def _deblock(self, search: bool):
         """KEY frames from the wavefront path are uniform 16x16 with
         TX_16X16/TX_8X8, so the in-loop deblock collapses to the device
         fixed-grid filter at the header's q-derived level
@@ -116,6 +121,10 @@ class TorchAllIntraEncoder(LossyAllIntraEncoder):
 
     def _encode_tile(self) -> bytes:
         self._ensure_device_encode()
+        with profile("key/emit"):
+            return self._emit_tile()
+
+    def _emit_tile(self) -> bytes:
         if not self._native_tile_ok():
             return super()._encode_tile()
         from ..bitstream.tables import FrameContext

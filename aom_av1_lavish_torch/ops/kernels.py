@@ -8,15 +8,23 @@ C++ kernel in ops/csrc/, built by ops/build.py and called through ctypes:
                                                _ssd_kernel)
   K3 convolve_8tap  — csrc/convolve_8tap.cu   (_conv8_kernel)
   K4 quantize_b_vec — csrc/quantize_b.cu      (_quant_kernel)
+     wave_encode    — csrc/wave_encode.cu     (_quant_kernel's inline twin
+                                               with its producer and its
+                                               consumers in a wave of the
+                                               wavefront KEY)
 
-K1, K2 and K3 have two entries each.  ssd_surface and convolve_8tap take
+Every kernel has two entries.  ssd_surface and convolve_8tap take
 the windows and regions the Pallas kernels took; ssd_surface_plane and
 convolve_8tap_plane take the padded reference plane and cut the windows
 and regions themselves, inside the kernel, which is what the motion search
 and motion compensation call (the windows never exist in device memory).
 gather_windows copies the windows out; block_ssd_at, which the full-pel
 refine calls, reads them and returns only each block's SSD at each of its
-candidate origins.  Both entries of a kernel count under its one name.
+candidate origins.  quantize_b_vec quantizes rows of coefficients;
+wave_encode, which the wavefront KEY calls, codes one whole wave of 16x16
+blocks in one launch (edges, predictions, transforms, the quantizer, rate
+estimate, inverse, mode decision, outputs).  Both entries of a kernel count
+under its one name.
 
 Beside each wrapper sits its plain PyTorch version (integer math, no
 convolution library), which takes the same tensors on any device.  A
@@ -30,8 +38,16 @@ What bounds each kernel on the H100 is noted at the top of its source.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 
+import numpy as np
 import torch
+
+from ..bitstream import constants as c
+from ..bitstream import tables
+from ..common import txfm1d as T1
+from ..common import txfm2d as T2
+from ..common.intra import SMOOTH_WEIGHTS
 
 LAUNCHES = {"gather_windows": 0, "ssd_surface": 0, "convolve_8tap": 0,
             "quantize_b_vec": 0}
@@ -54,6 +70,8 @@ _SIGNATURES = {
                                 _INT, _INT, _VP],
     "avl_quantize_b": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                        ctypes.c_longlong, _INT, _INT, _VP],
+    "avl_wave_encode": [_VP] * 11 + [_INT] * 6
+    + [ctypes.c_float, ctypes.c_float, _VP],
 }
 _lib = None
 
@@ -432,3 +450,132 @@ def quantize_b_vec(coeff, zbin, rnd, quant, qshift, deq, log_scale: int):
                 coeff.data_ptr(), *[p.data_ptr() for p in params], total,
                 n, int(log_scale))
     return q, dq
+
+
+# ---------------------------------------------------------------------------
+# K4, fused entry: one wave of the wavefront KEY
+
+#: the luma modes a wave tries, in the order of their costs
+WAVE_MODES = (c.DC_PRED, c.V_PRED, c.H_PRED, c.SMOOTH_PRED,
+              c.SMOOTH_V_PRED, c.SMOOTH_H_PRED, c.PAETH_PRED)
+#: int16 values of a result row: mode, 3 eobs, 2 unused, 256 + 64 + 64 levels
+WAVE_ROW = 390
+#: log2(x) as the reference evaluates it: its jaxpr is log(x) / log(2),
+#: which XLA computes as a multiply by the float32 reciprocal of log(2)
+INV_LN2 = float(np.float32(1.0) / np.float32(np.log(2.0)))
+#: where each part of wave_tables() starts (csrc/wave_encode.cu has the
+#: same offsets): stage tables [stage][position][kind, src0, src1, w0, w1]
+#: of the forward DCT at the column and at the row cos bit and of the
+#: inverse, for n 16 and n 8; the scans; the smooth weights; the modes; and
+#: per size the forward cos bits (col, row), the forward shifts, the inverse
+#: shifts and the number of stages
+WAVE_TABLE_OFFSETS = {"fdct16_col": 0, "fdct16_row": 560, "idct16": 1120,
+                      "fdct8_col": 1680, "fdct8_row": 1880, "idct8": 2080,
+                      "scan_y": 2280, "scan_c": 2536, "smooth16": 2600,
+                      "modes": 2616, "params16": 2624, "params8": 2632,
+                      "total": 2640}
+
+
+@lru_cache(maxsize=None)
+def wave_tables() -> np.ndarray:
+    """Everything constant that the wave kernel reads, as one int32 array
+    laid out by WAVE_TABLE_OFFSETS.  The stage tables are those of
+    common/txfm1d.py at the cos bits of common/txfm2d.py, as ops/txfm.py
+    runs them.  The scans are given as positions of the kernel's
+    coefficient layout: it keeps the coefficient of flat index c * n + r at
+    position r * n + c (the forward transform's output before the final
+    transpose, which is where the inverse reads it)."""
+    out = np.zeros(WAVE_TABLE_OFFSETS["total"], np.int32)
+
+    def put(key, values):
+        a = np.asarray(values, np.int64).reshape(-1)
+        o = WAVE_TABLE_OFFSETS[key]
+        out[o:o + a.size] = a
+
+    for n, tx in ((16, c.TX_16X16), (8, c.TX_8X8)):
+        idx = n.bit_length() - 3
+        cb_col = T2._FWD_COS_BIT_COL[idx][idx]
+        cb_row = T2._FWD_COS_BIT_ROW[idx][idx]
+        put(f"fdct{n}_col", T1.fdct_stages(n, cb_col))
+        put(f"fdct{n}_row", T1.fdct_stages(n, cb_row))
+        inv = T1.idct_stages(n, T1.INV_COS_BIT)
+        put(f"idct{n}", inv)
+        assert len(inv) == len(T1.fdct_stages(n, cb_col))
+        put(f"params{n}", [cb_col, cb_row, *T2.FWD_SHIFT[tx],
+                           *T2.INV_SHIFT[tx], len(inv)])
+        scan = np.asarray(tables.scan(tx, c.DCT_DCT), np.int64)
+        put("scan_y" if n == 16 else "scan_c", scan % n * n + scan // n)
+    put("smooth16", SMOOTH_WEIGHTS[16])
+    put("modes", WAVE_MODES)
+    out.setflags(write=False)
+    return out
+
+
+@lru_cache(maxsize=None)
+def _wave_tables_on(device: torch.device):
+    return torch.as_tensor(wave_tables().copy(), device=device)
+
+
+def wave_encode_plain(rows, ry, ru, rv, src_y, src_u, src_v, order,
+                      start: int, count: int, pq, lam: float):
+    """wave_encode as a composition of torch ops on any device: the three
+    planes of the wave through ops/wavefront.py, the quantizer through
+    quantize_b_vec."""
+    from .wavefront import wave_step
+    return wave_step(rows, ry, ru, rv, src_y, src_u, src_v, order, start,
+                     count, pq, lam)
+
+
+def wave_encode(rows, ry, ru, rv, src_y, src_u, src_v, order, start: int,
+                count: int, pq, lam: float):
+    """K4's fused entry for the wavefront KEY (replaces
+    pallas_kernels._quant_kernel's inline twin wavefront._quantize_jnp with
+    the plane_encode and wave body around it): codes the blocks
+    order[start:start + count] of every frame of a batch in one launch.
+
+    src_y (N, H, W), src_u, src_v (N, H/2, W/2) uint8 source planes; ry,
+    ru, rv recon planes of the same shapes, read at the blocks' edges
+    (which earlier waves wrote) and written at the blocks; rows (N, nblk,
+    390) int16, written at the blocks' indices in the emitter's layout
+    (mode, 3 eobs, 2 zeros, the levels of y, u, v wrapped to int16); order
+    (nblk,) int32 block indices r * (W/16) + c sorted by wave; pq (3, 5, 2)
+    int32 (ops/wavefront.py pq_array of each plane).  Returns the float32
+    costs (N, count, 7) of the luma modes in WAVE_MODES order."""
+    name = "quantize_b_vec"
+    planes = (ry, ru, rv, src_y, src_u, src_v)
+    _require(all(p.dim() == 3 and p.dtype == torch.uint8
+                 and p.is_contiguous() for p in planes), name,
+             "wave_encode: planes must be contiguous (N, h, w) uint8")
+    N, H, W = src_y.shape
+    _require(H % 16 == 0 and W % 16 == 0 and H > 0 and W > 0, name,
+             "wave_encode: luma sides must be multiples of 16")
+    nblk = (H // 16) * (W // 16)
+    _require(ry.shape == src_y.shape
+             and all(tuple(p.shape) == (N, H // 2, W // 2)
+                     for p in (ru, rv, src_u, src_v)), name,
+             "wave_encode: recon and source planes of one 4:2:0 geometry")
+    _require(rows.dtype == torch.int16 and rows.is_contiguous()
+             and tuple(rows.shape) == (N, nblk, WAVE_ROW), name,
+             f"wave_encode: rows must be contiguous int16 ({N}, {nblk}, "
+             f"{WAVE_ROW})")
+    _require(order.dtype == torch.int32 and tuple(order.shape) == (nblk,)
+             and order.is_contiguous(), name,
+             f"wave_encode: order must be contiguous int32 ({nblk},)")
+    _require(0 <= start and 0 < count and start + count <= nblk, name,
+             "wave_encode: start and count must lie inside order")
+    _require(pq.dtype == torch.int32 and tuple(pq.shape) == (3, 5, 2)
+             and pq.is_contiguous(), name,
+             "wave_encode: pq must be contiguous int32 (3, 5, 2)")
+    if _on_cpu(name, rows, *planes, order, pq):
+        return wave_encode_plain(rows, ry, ru, rv, src_y, src_u, src_v,
+                                 order, start, count, pq, lam)
+    _require(N <= 65535, name, "wave_encode takes at most 65535 frames")
+    tab = _wave_tables_on(rows.device)
+    costs = torch.empty((N, count, len(WAVE_MODES)), dtype=torch.float32,
+                        device=rows.device)
+    _launch(name, "avl_wave_encode", rows.data_ptr(), costs.data_ptr(),
+            ry.data_ptr(), ru.data_ptr(), rv.data_ptr(), src_y.data_ptr(),
+            src_u.data_ptr(), src_v.data_ptr(), order.data_ptr(),
+            pq.data_ptr(), tab.data_ptr(), tab.numel(), int(start),
+            int(count), N, H, W, float(lam), INV_LN2)
+    return costs

@@ -3,16 +3,21 @@
 Port of aom_av1_lavish_tpu/ops/wavefront.py.  Blocks on one anti-
 diagonal have no prediction dependency for the non-directional mode set,
 so each wave encodes as one batch: gather edges -> 7 intra predictions ->
-batched integer DCT -> quantize (kernel K4) -> RD mode pick -> exact
-inverse -> scatter recon.  The reference's lax.fori_loop over waves is a
-Python loop here; the recon stays on the device between waves.  Several
-frames of one geometry ride the same waves as a batch axis (the
-reference's vmap): the multi-frame all-intra entry.
+batched integer DCT -> quantize -> RD mode pick -> exact inverse ->
+scatter recon.  The reference's lax.fori_loop over waves is a Python loop
+here, one call of kernels.wave_encode a wave (kernel K4's fused entry: on
+the card one launch codes the wave's blocks of all three planes); the
+recon and the result rows stay on the device between waves and are fetched
+once.  Several frames of one geometry ride the same waves as a batch axis
+(the reference's vmap): the multi-frame all-intra entry.
+
+wave_step is the same wave as a composition of torch ops (the plain
+version of wave_encode, and what the CPU runs).
 """
 
 from __future__ import annotations
 
-import math
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -22,16 +27,11 @@ from ..bitstream import constants as c
 from ..bitstream import tables
 from ..common import quant as Q
 from ..common.intra import SMOOTH_WEIGHTS
+from ..utils.profiler import profile
 
 from . import txfm as TX
-from .kernels import quantize_b_vec
-
-WAVE_MODES = (c.DC_PRED, c.V_PRED, c.H_PRED, c.SMOOTH_PRED,
-              c.SMOOTH_V_PRED, c.SMOOTH_H_PRED, c.PAETH_PRED)
-
-#: log2(x) as the reference evaluates it: its jaxpr is log(x) / log(2),
-#: which XLA computes as a multiply by the float32 reciprocal of log(2)
-_INV_LN2 = float(np.float32(1.0) / np.float32(math.log(2.0)))
+from .kernels import (INV_LN2 as _INV_LN2, WAVE_MODES, WAVE_ROW,
+                      quantize_b_vec, wave_encode)
 
 
 def log2_f32(x):
@@ -76,6 +76,12 @@ def est_bits(qcoeff, scan):
     return torch.where(eob == 0, 0.6, bits), eob
 
 
+@lru_cache(maxsize=None)
+def _smooth_weights_on(B: int, device: torch.device):
+    return torch.as_tensor(SMOOTH_WEIGHTS[B], dtype=torch.int32,
+                           device=device)
+
+
 def predict_modes(above, left, al, have_top, have_left, B: int):
     """above/left (N, B) int, al (N,), flags (N,) bool -> (N, 7, B, B)
     int32 predictions in WAVE_MODES order."""
@@ -94,8 +100,7 @@ def predict_modes(above, left, al, have_top, have_left, B: int):
     dc_pred = dc[:, None, None].expand(N, B, B)
     v_pred = a[:, None, :].expand(N, B, B)
     h_pred = lf[:, :, None].expand(N, B, B)
-    w = torch.as_tensor(SMOOTH_WEIGHTS[B], dtype=torch.int32,
-                        device=above.device)
+    w = _smooth_weights_on(B, above.device)
     below = lf[:, B - 1]
     right = a[:, B - 1]
     sm = (w[None, :, None] * a[:, None, :]
@@ -129,10 +134,11 @@ def _plane_encode(recon, src, ys, xs, B_, scan, dc_mask, pq, tx_size,
     recon and src are (N, H, W), and every frame codes the wave's blocks
     (ys, xs) in the same pass (the reference's vmap over frames), so the
     quantizer (K4) is launched once for all N.  Returns (recon, best mode
-    (N, n), qcoeff of the best mode (N, n, B_*B_), its eob (N, n)); recon
-    is updated in place.  Waves are not padded to a common width (the wave
-    loop is in Python), so every lane is a real block and there is nothing
-    for the reference's mode="drop" to drop."""
+    (N, n), qcoeff of the best mode (N, n, B_*B_), its eob (N, n), the
+    float32 costs (N, n, n_modes)); recon is updated in place.  Waves are
+    not padded to a common width (the wave loop is in Python), so every
+    lane is a real block and there is nothing for the reference's
+    mode="drop" to drop."""
     dev = recon.device
     N, n = recon.shape[0], ys.shape[0]
     rp = torch.nn.functional.pad(recon, (1, 0, 1, 0))     # index k+1 == k
@@ -188,7 +194,67 @@ def _plane_encode(recon, src, ys, xs, B_, scan, dc_mask, pq, tx_size,
     eob_best = eob[sel]
     recon[:, rows, cols] = recon_all[sel].reshape(N, n, B_, B_)
     return (recon, best.reshape(N, n), q_best.reshape(N, n, B_ * B_),
-            eob_best.reshape(N, n))
+            eob_best.reshape(N, n), cost.reshape(N, n, M))
+
+
+def wave_table(nbr: int, nbc: int):
+    """The blocks of an nbr x nbc grid sorted by wave (anti-diagonal r + c,
+    rows ascending inside a wave) as indices r * nbc + c, int32 (nblk,),
+    and the waves' offsets into it (nbr + nbc entries): wave d is
+    order[offsets[d]:offsets[d + 1]].  A block's top, left and top-left
+    neighbours lie in earlier waves."""
+    r, x = np.divmod(np.arange(nbr * nbc), nbc)
+    order = np.lexsort((r, r + x)).astype(np.int32)
+    counts = np.bincount(r + x, minlength=nbr + nbc - 1)
+    return order, np.concatenate([[0], np.cumsum(counts)]).tolist()
+
+
+@lru_cache(maxsize=8)
+def _wave_table_on(nbr: int, nbc: int, device: torch.device):
+    order, offsets = wave_table(nbr, nbc)
+    return torch.as_tensor(order, device=device), offsets
+
+
+@lru_cache(maxsize=None)
+def _wave_consts(device: torch.device):
+    """(scan, dc mask) of the luma and of the chroma transform, and the
+    mode numbers, as tensors on `device`."""
+    out = []
+    for tx, n in ((c.TX_16X16, 256), (c.TX_8X8, 64)):
+        out.append((torch.tensor(tables.scan(tx, c.DCT_DCT),
+                                 dtype=torch.int64, device=device),
+                    torch.arange(n, device=device) == 0))
+    return out[0], out[1], torch.tensor(WAVE_MODES, dtype=torch.int16,
+                                        device=device)
+
+
+def wave_step(rows, ry, ru, rv, src_y, src_u, src_v, order, start: int,
+              count: int, pq, lam: float):
+    """One wave in torch ops, the signature and results of
+    kernels.wave_encode: the blocks order[start:start + count] of every
+    frame through _plane_encode plane by plane, recon planes and rows
+    written in place, the luma costs (N, count, 7) returned."""
+    (scan_y, dc_y), (scan_c, dc_c), modes = _wave_consts(rows.device)
+    B, Bc = 16, 8
+    nbc = src_y.shape[2] // B
+    bid = order[start:start + count].long()
+    ys, xs = bid // nbc * B, bid % nbc * B
+    _, best, qy, eoby, cost = _plane_encode(
+        ry, src_y, ys, xs, B, scan_y, dc_y, pq[0], c.TX_16X16,
+        len(WAVE_MODES), lam)
+    _, _, qu, eobu, _ = _plane_encode(
+        ru, src_u, ys // 2, xs // 2, Bc, scan_c, dc_c, pq[1], c.TX_8X8, 1,
+        lam)
+    _, _, qv, eobv, _ = _plane_encode(
+        rv, src_v, ys // 2, xs // 2, Bc, scan_c, dc_c, pq[2], c.TX_8X8, 1,
+        lam)
+    row = torch.zeros((rows.shape[0], count, WAVE_ROW), dtype=torch.int16,
+                      device=rows.device)
+    row[:, :, 0] = modes[best]
+    row[:, :, 1:4] = torch.stack([eoby, eobu, eobv], 2).to(torch.int16)
+    row[:, :, 6:] = torch.cat([qy, qu, qv], 2).to(torch.int16)
+    rows[:, bid] = row
+    return cost
 
 
 class WavefrontEncoder:
@@ -202,82 +268,48 @@ class WavefrontEncoder:
         self.device = resolve_device(device)
         self.pq = [Q.build_plane_quant(qindex, 0, 0) for _ in range(3)]
 
-    def _wave_geometry(self, H, W):
-        B = self.B
-        nbr, nbc = H // B, W // B
-        waves = []
-        for d in range(nbr + nbc - 1):
-            waves.append([(r, d - r) for r in range(max(0, d - nbc + 1),
-                                                    min(nbr, d + 1))])
-        return waves, nbr, nbc
-
     def encode_frames_raw(self, frame_list):
         """Batched multi-frame encode: the N same-geometry (y, u, v) frames
-        of frame_list ride the same waves as a batch axis, one quantizer
-        launch per wave and plane for all of them.  Returns per frame
-        (results dict, res390, recon planes)."""
+        of frame_list ride the same waves as a batch axis, one wave_encode
+        call per wave for all of them and all three planes.  Returns per
+        frame (results dict, res390, recon planes)."""
         dev = self.device
         B = self.B
-        Bc = B // 2
-        src_y, src_u, src_v = [
-            torch.as_tensor(np.stack([np.asarray(f[pi]) for f in frame_list]),
-                            device=dev) for pi in range(3)]
-        N, H, W = src_y.shape
-        assert H % B == 0 and W % B == 0
-        waves, nbr, nbc = self._wave_geometry(H, W)
-        scan_y = torch.tensor(tables.scan(c.TX_16X16, c.DCT_DCT),
-                              dtype=torch.int64, device=dev)
-        scan_c = torch.tensor(tables.scan(c.TX_8X8, c.DCT_DCT),
-                              dtype=torch.int64, device=dev)
-        dc_y = torch.arange(B * B, device=dev) == 0
-        dc_c = torch.arange(Bc * Bc, device=dev) == 0
-        pq = [torch.as_tensor(pq_array(p), device=dev) for p in self.pq]
-        ry = torch.zeros((N, H, W), dtype=torch.uint8, device=dev)
-        ru = torch.zeros((N, H // 2, W // 2), dtype=torch.uint8, device=dev)
-        rv = torch.zeros((N, H // 2, W // 2), dtype=torch.uint8, device=dev)
-        nblk = nbr * nbc
-        out_mode = torch.zeros((N, nblk), dtype=torch.int64, device=dev)
-        out_q = torch.zeros((N, nblk, B * B + 2 * Bc * Bc),
-                            dtype=torch.int32, device=dev)
-        out_eob = torch.zeros((N, nblk, 3), dtype=torch.int64, device=dev)
-        for blocks in waves:
-            rr = torch.as_tensor([r for r, _ in blocks], device=dev)
-            cc = torch.as_tensor([x for _, x in blocks], device=dev)
-            ys, xs = rr * B, cc * B
-            ry, best, qy, eoby = _plane_encode(
-                ry, src_y, ys, xs, B, scan_y, dc_y, pq[0], c.TX_16X16,
-                len(WAVE_MODES), self.lam)
-            ru, _, qu, eobu = _plane_encode(
-                ru, src_u, ys // 2, xs // 2, Bc, scan_c, dc_c, pq[1],
-                c.TX_8X8, 1, self.lam)
-            rv, _, qv, eobv = _plane_encode(
-                rv, src_v, ys // 2, xs // 2, Bc, scan_c, dc_c, pq[2],
-                c.TX_8X8, 1, self.lam)
-            bid = rr * nbc + cc
-            out_mode[:, bid] = best
-            out_q[:, bid] = torch.cat([qy, qu, qv], 2)
-            out_eob[:, bid] = torch.stack([eoby, eobu, eobv], 2)
-        modes_all = np.asarray(WAVE_MODES, np.int16)[out_mode.cpu().numpy()]
-        q_all = out_q.to(torch.int16).cpu().numpy()
-        eobs_all = out_eob.to(torch.int16).cpu().numpy()
-        recons = [p.cpu().numpy() for p in (ry, ru, rv)]
-        Bq, Bcq = B * B, Bc * Bc
-        out = []
-        for i in range(N):
-            modes, q, eobs = modes_all[i], q_all[i], eobs_all[i]
-            r390 = np.zeros((nblk, 390), np.int16)
-            r390[:, 0] = modes
-            r390[:, 1:4] = eobs
-            r390[:, 6:390] = q
-            results = {}
-            for b in range(nblk):
-                r, x = divmod(b, nbc)
-                results[(r, x)] = dict(
-                    y_mode=int(modes[b]), qy=q[b, :Bq],
-                    qu=q[b, Bq:Bq + Bcq], qv=q[b, Bq + Bcq:],
-                    eoby=int(eobs[b, 0]), eobu=int(eobs[b, 1]),
-                    eobv=int(eobs[b, 2]))
-            out.append((results, r390, tuple(p[i] for p in recons)))
+        with profile("key/waves"):
+            src = [torch.as_tensor(
+                np.stack([np.asarray(f[pi]) for f in frame_list]),
+                device=dev) for pi in range(3)]
+            N, H, W = src[0].shape
+            assert H % B == 0 and W % B == 0
+            nbr, nbc = H // B, W // B
+            order, offsets = _wave_table_on(nbr, nbc, dev)
+            pq = torch.as_tensor(np.stack([pq_array(p) for p in self.pq]),
+                                 device=dev)
+            recon = [torch.zeros_like(p) for p in src]
+            rows = torch.zeros((N, nbr * nbc, WAVE_ROW), dtype=torch.int16,
+                               device=dev)
+            for d in range(nbr + nbc - 1):
+                wave_encode(rows, *recon, *src, order, offsets[d],
+                            offsets[d + 1] - offsets[d], pq, self.lam)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        with profile("key/fetch"):
+            rows = rows.cpu().numpy()
+            recons = [p.cpu().numpy() for p in recon]
+        with profile("key/unpack"):
+            Bq, Bcq = B * B, B * B // 4
+            out = []
+            for i in range(N):
+                r390 = rows[i]
+                modes, eobs, q = r390[:, 0], r390[:, 1:4], r390[:, 6:]
+                results = {}
+                for b in range(nbr * nbc):
+                    results[divmod(b, nbc)] = dict(
+                        y_mode=int(modes[b]), qy=q[b, :Bq],
+                        qu=q[b, Bq:Bq + Bcq], qv=q[b, Bq + Bcq:],
+                        eoby=int(eobs[b, 0]), eobu=int(eobs[b, 1]),
+                        eobv=int(eobs[b, 2]))
+                out.append((results, r390, tuple(p[i] for p in recons)))
         return out
 
     def encode_frame_raw(self, planes):

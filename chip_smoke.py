@@ -10,11 +10,14 @@
    kernel once more from a CUDA graph, without the host).  Each kernel's
    bound (the least time the card could take: its bytes at the
    memory rate or its operations at the peak rate, whichever is larger)
-   is computed from the case's tensors.
+   is computed from the case's tensors.  K4's fused entry wave_encode
+   (one wave of the wavefront KEY a launch) is held to its plain version
+   too: every integer output exact, the float32 costs to 1e-6 relative.
 2. Times the call paths that the plane-form entries of K2 and K3 and the
-   fused form of K1 replaced (cut windows -> int32 -> ssd_surface; gather
-   -> int32 -> convolve_8tap; nine gathers each with its subtract, square
-   and sum) beside the new forms, in turns, on the same inputs.
+   fused forms of K1 and K4 replaced (cut windows -> int32 -> ssd_surface;
+   gather -> int32 -> convolve_8tap; nine gathers each with its subtract,
+   square and sum; a wave as three planes of torch ops around three
+   quantizer launches) beside the new forms, in turns, on the same inputs.
 3. Runs the slice in two configurations: the 8-frame 1920x1088 inter-GOP
    encode of the repo's benchmark clip (KEY + a GF group of 7: hidden ARF
    + 6 chained P frames) with qindex 120 and CDEF off, first at cpu_used 8
@@ -78,8 +81,9 @@ PK = "aom_av1_lavish_tpu/ops/pallas_kernels.py"
 CSRC = "aom_av1_lavish_torch/ops/csrc"
 #: record name -> (source, the TPU kernel it replaces, the LAUNCHES key its
 #: launches count under, the key its own launches are read from).  K1's two
-#: entries have a record each (block_ssd_at is its fused form): both count
-#: under LAUNCHES["gather_windows"] and are told apart by ENTRY_LAUNCHES
+#: entries have a record each (block_ssd_at is its fused form), as have K4's
+#: (wave_encode is its fused form for the wavefront KEY): both count under
+#: their kernel's LAUNCHES key and are told apart by ENTRY_LAUNCHES
 KERNELS = {
     "gather_windows": (f"{CSRC}/gather_windows.cu", f"{PK}:249",
                        "gather_windows", "avl_gather_windows"),
@@ -90,7 +94,9 @@ KERNELS = {
     "convolve_8tap": (f"{CSRC}/convolve_8tap.cu", f"{PK}:419",
                       "convolve_8tap", "convolve_8tap"),
     "quantize_b_vec": (f"{CSRC}/quantize_b.cu", f"{PK}:343",
-                       "quantize_b_vec", "quantize_b_vec"),
+                       "quantize_b_vec", "avl_quantize_b"),
+    "wave_encode": (f"{CSRC}/wave_encode.cu", f"{PK}:343",
+                    "quantize_b_vec", "avl_wave_encode"),
 }
 #: the device function(s) of each kernel, as a profiler names them
 DEVICE_FUNCS = {
@@ -98,7 +104,7 @@ DEVICE_FUNCS = {
                        "block_ssd_at_kernel"),
     "ssd_surface": ("ssd_plane_kernel", "ssd_surface_kernel"),
     "convolve_8tap": ("conv8_plane_kernel", "convolve_8tap_kernel"),
-    "quantize_b_vec": ("quantize_b_kernel",),
+    "quantize_b_vec": ("quantize_b_kernel", "wave_encode_kernel"),
 }
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): device
 # memory rate, and operations per second by operand type.  int32 is not in
@@ -158,13 +164,138 @@ def graph_ms(fn, reps: int = 20) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def key_lambda(w: int, h: int, qindex: int) -> float:
+    """The RD multiplier the wavefront KEY of a w x h frame codes with."""
+    from aom_av1_lavish_torch.encoder.encoder import make_sequence_header
+    from aom_av1_lavish_torch.encoder.lossy import (LossyAllIntraEncoder,
+                                                    make_lossy_frame_header)
+    sh = make_sequence_header(w, h)
+    return LossyAllIntraEncoder(sh, make_lossy_frame_header(sh, qindex)).lam
+
+
+def wave_work(n_frames: int, count: int):
+    """(bytes, integer operations) of one wave_encode call on `count`
+    blocks of `n_frames` frames.  Bytes: a block reads its source (256 +
+    2 x 64), its edges (33 + 2 x 17) and its index, and writes its recon,
+    its (390,) int16 row and 7 float32 costs; a call reads the tables and
+    the quantizer parameters once.  Operations: the butterflies of the
+    stage tables as the interpreter runs them (5 a rotation: two
+    multiplies, two adds, a shift; 1 an add/sub, 3 with the inverse's
+    clamp), four 1-D passes over each of the 7 luma and 2 chroma blocks,
+    and 46 a position around them (prediction 8, residual and shifts 4,
+    quantizer 16, rate estimate 6, inverse shifts and clamps 6, recon 3,
+    SSE 3)."""
+    import numpy as np
+
+    from aom_av1_lavish_torch.ops import kernels as K
+    tab, off = K.wave_tables(), K.WAVE_TABLE_OFFSETS
+    per_block = 0
+    for n, blocks in ((16, 7), (8, 2)):
+        stages = int(tab[off[f"params{n}"] + 7])
+        ops = 0
+        for key, inverse in ((f"fdct{n}_col", 0), (f"fdct{n}_row", 0),
+                             (f"idct{n}", 1), (f"idct{n}", 1)):
+            kind = tab[off[key]:off[key] + stages * n * 5].reshape(-1, 5)[:, 0]
+            ops += n * int(5 * np.sum(kind == 2)
+                           + (1 + 2 * inverse) * np.sum(kind == 1))
+        per_block += blocks * (ops + 46 * n * n)
+    nbytes = (n_frames * count * (384 + 67 + 384 + 780 + 28) + 4 * count
+              + 4 * off["total"] + 120)
+    return nbytes, n_frames * count * per_block
+
+
+def _wave_cases(dev):
+    """wave_encode at the KEY's shapes: the longest wave of a 1080p frame
+    (68 blocks) for 1 and for 4 frames, its first wave (1 block), and the
+    longest wave of a 768x576 frame (36 blocks).  The source is the
+    benchmark clip; the recon the waves before would have left is the
+    source with noise of a coded frame's size."""
+    import numpy as np
+    import torch
+
+    from aom_av1_lavish_torch.common import quant as Q
+    from aom_av1_lavish_torch.ops.wavefront import pq_array, wave_table
+    from aom_av1_lavish_torch.utils.clips import make_frames
+
+    rng = np.random.default_rng(5)
+    pq = torch.as_tensor(np.stack([pq_array(Q.build_plane_quant(QINDEX, 0, 0))
+                                   ] * 3), device=dev)
+    cases = []
+    for w, h, n_frames, wave, what in (
+            (W, H, 1, 67, "longest wave"), (W, H, 4, 67, "longest wave"),
+            (W, H, 1, 0, "first wave"), (RDO_W, RDO_H, 1, 35,
+                                         "longest wave")):
+        frames = make_frames(n_frames, w, h)
+        src = [torch.as_tensor(np.stack([f[i] for f in frames]), device=dev)
+               for i in range(3)]
+        recon = [(p.to(torch.int16) + torch.as_tensor(
+            rng.integers(-6, 7, tuple(p.shape)).astype(np.int16),
+            device=dev)).clamp(0, 255).to(torch.uint8) for p in src]
+        order, offsets = wave_table(h // 16, w // 16)
+        start, count = offsets[wave], offsets[wave + 1] - offsets[wave]
+        rows = torch.zeros((n_frames, len(order), 390), dtype=torch.int16,
+                           device=dev)
+        nbytes, ops = wave_work(n_frames, count)
+        cases.append(("wave_encode", "wave_encode",
+                      f"{w}x{h} {what}: {count} blocks x {n_frames} frame(s)",
+                      (rows, *recon, *src, torch.as_tensor(order, device=dev),
+                       start, count, pq, key_lambda(w, h, QINDEX)),
+                      (ops, "int32"), nbytes))
+    return cases
+
+
+def run_case(K, fn: str, args):
+    """-> (got, want): the result tensors of the wrapper `K.<fn>` and of
+    its plain version on `args`.  wave_encode writes into its first four
+    arguments (rows and recon planes), so each side gets its own copies and
+    they count as results beside the costs it returns."""
+    out = []
+    for f in (getattr(K, fn), getattr(K, fn + "_plain")):
+        if fn == "wave_encode":
+            mine = [a.clone() for a in args[:4]]
+            out.append((*mine, f(*mine, *args[4:])))
+        else:
+            res = f(*args)
+            out.append(res if isinstance(res, tuple) else (res,))
+    return out
+
+
+def wave_error(got, want, args):
+    """wave_encode against its plain version -> (max abs difference of the
+    integer outputs, max relative difference of the costs, blocks whose
+    two lowest costs lie within 1e-6 relative and whose mode differs).
+    Such a block's outputs are left out of the integer comparison; any
+    other difference counts."""
+    order, start, count = args[7], args[8], args[9]
+    bid = order[start:start + count].long()
+    cg, cw = got[4], want[4]
+    rel = float(((cg - cw).abs() / cw.abs().clamp_min(1.0)).max())
+    low = cw.sort(-1).values
+    near = (low[..., 1] - low[..., 0]) <= 1e-6 * low[..., 1].abs()
+    flipped = got[0][:, bid, 0] != want[0][:, bid, 0]         # (N, count)
+    if bool((flipped & ~near).any()):
+        return float("inf"), rel, int(flipped.sum())
+    err = 0.0
+    keep = (~flipped)[..., None]
+    d = (got[0][:, bid].int() - want[0][:, bid].int()).abs() * keep
+    err = max(err, float(d.max()))
+    for g, w, b in zip(got[1:4], want[1:4], (16, 8, 8)):
+        n, hh, ww = g.shape
+        d = (g.int() - w.int()).abs().reshape(n, hh // b, b, ww // b, b) \
+            .amax((2, 4)).reshape(n, -1)                      # per block
+        d[:, bid] *= ~flipped
+        err = max(err, float(d.max()))
+    return err, rel, int(flipped.sum())
+
+
 def _cases(dev):
-    """(kernel name, wrapper name, label, args, operations) at the
-    slice's shapes, made from a seed; the wrapper `K.<wrapper name>` and
-    its plain version `K.<wrapper name>_plain` take the same args.
+    """(kernel name, wrapper name, label, args, operations[, bytes]) at
+    the slice's shapes, made from a seed; the wrapper `K.<wrapper name>`
+    and its plain version `K.<wrapper name>_plain` take the same args.
     `operations` is (count, operand type) of the integer operations the
-    function does on these inputs.  The first case of a kernel is its
-    headline: the entry and shape the slice calls most."""
+    function does on these inputs; `bytes`, where given, what the function
+    must move when that is not the size of its tensors.  The first case of
+    a kernel is its headline: the entry and shape the slice calls most."""
     import numpy as np
     import torch
 
@@ -401,16 +532,15 @@ def _cases(dev):
         cases.append(("quantize_b_vec", "quantize_b_vec",
                       f"n{n} rows{rows} ls{log_scale} ({what})",
                       (coeff, *par, log_scale), (16 * rows * n, "int32")))
-    return cases
+    return cases + _wave_cases(dev)
 
 
-def bound_ms(args, outs, operations):
-    """(ms, "bytes" | "operations"): the larger of the tensors' bytes
-    (each input read once, each output written once) at the card's memory
-    rate and the operations at the peak rate of their type."""
-    import torch
+def bound_ms(nbytes, operations):
+    """(ms, "bytes" | "operations"): the larger of the bytes moved (each
+    input read once, each output written once) at the card's memory rate
+    and the operations at the peak rate of their type."""
     count, kind = operations
-    t_bytes = moved_bytes(args, outs) / MEM_BYTES_PER_S * 1e3
+    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
     t_ops = count / OPS_PER_S[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -436,34 +566,42 @@ def phase_kernels(dev) -> dict:
         f"{'kernel ms':>10} {'graph ms':>9} {'plain ms':>10} "
         f"{'bound ms':>9} by {'bytes':>12} {'operations':>12}")
     n_cases = 0
-    for name, fn, label, args, operations in _cases(dev):
+    for name, fn, label, args, operations, *nbytes in _cases(dev):
         wrapper = getattr(K, fn)
         plain = getattr(K, fn + "_plain")
-        got = wrapper(*args)
-        want = plain(*args)
+        got, want = run_case(K, fn, args)
         torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = 0.0
         for g, w in zip(got, want):
             if g.shape != w.shape or g.dtype != w.dtype:
                 raise AssertionError(f"{name} {label}: {tuple(g.shape)} "
                                      f"{g.dtype} vs {tuple(w.shape)} "
                                      f"{w.dtype}")
-            err = max(err, float((g.double() - w.double()).abs().max())
-                      if g.numel() else 0.0)
+        if fn == "wave_encode":
+            err, rel, flipped = wave_error(got, want, args)
+            log(f"{name} {label}: integer outputs max abs difference "
+                f"{err:g}; float32 costs max relative difference {rel:.3g} "
+                f"(limit 1e-6); {flipped} block(s) whose two lowest costs "
+                "lie within 1e-6 and whose mode differs")
+            if not rel <= 1e-6:
+                raise AssertionError(f"{name} {label}: costs differ from "
+                                     f"the plain version's by {rel:.3g}")
+        else:
+            err = max([float((g.double() - w.double()).abs().max())
+                       for g, w in zip(got, want) if g.numel()] + [0.0])
+        # (wave_encode writes in place what it wrote before: repeats of
+        # one call on the same tensors do the same work)
         ms = cuda_ms(lambda: wrapper(*args))
         g_ms = graph_ms(lambda: wrapper(*args))
         plain_ms = cuda_ms(lambda: plain(*args), reps=3)
-        b_ms, b_by = bound_ms(args, got, operations)
-        nbytes = moved_bytes(args, got)
+        nbytes = nbytes[0] if nbytes else moved_bytes(args, got)
+        b_ms, b_by = bound_ms(nbytes, operations)
         log(f"{name:<15} {label:<47} {err:>7g} {ms:>10.4f} {g_ms:>9.4f} "
-            f"{plain_ms:>10.4f} {b_ms:>9.4f} {b_by:<10} {nbytes:>12d} "
+            f"{plain_ms:>10.4f} {b_ms:>9.5f} {b_by:<10} {nbytes:>12d} "
             f"{operations[0]:>12d}")
         rec = recs[name]
         rec["cases"].append(dict(
             shape=f"{fn} {label}", ms=round(ms, 5), graph_ms=round(g_ms, 5),
-            plain_ms=round(plain_ms, 4), bound_ms=round(b_ms, 5),
+            plain_ms=round(plain_ms, 4), bound_ms=round(b_ms, 7),
             bound_by=b_by, bytes=nbytes, operations=operations[0]))
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         if rec["ms"] is None:          # the first case is the headline one
@@ -474,15 +612,23 @@ def phase_kernels(dev) -> dict:
                                  f"plain version (max abs err {err})")
         n_cases += 1
     log(f"{n_cases} cases bit-equal to their plain versions")
+    # what a frame's waves cost at the least: they depend on each other, so
+    # a 1080p KEY is 187 launches in a row, none shorter than the 1-block one
+    first = next(c for c in recs["wave_encode"]["cases"]
+                 if "first wave" in c["shape"])
+    n_waves = H // 16 + W // 16 - 1
+    log(f"dependency floor of a {W}x{H} KEY: {n_waves} waves x "
+        f"{first['graph_ms']:.5f} ms (the 1-block wave from a graph) = "
+        f"{n_waves * first['graph_ms']:.3f} ms")
     return recs
 
 
 def phase_before_after(dev) -> None:
     """The call paths of the earlier slices beside the entries that
-    replaced them (the plane forms of K2 and K3, the fused form of K1), on
-    the same 1080p inputs, timed in turns (before, after, after, before)
-    and reported as the mean of each pair, and once each from a CUDA graph
-    (the device's time without the host's)."""
+    replaced them (the plane forms of K2 and K3, the fused forms of K1 and
+    K4), on the same 1080p inputs, timed in turns (before, after, after,
+    before) and reported as the mean of each pair, and once each from a
+    CUDA graph (the device's time without the host's)."""
     import numpy as np
     import torch
 
@@ -559,7 +705,30 @@ def phase_before_after(dev) -> None:
         return K.block_ssd_at(src, ref, ny, nx, nby, nbx, 16) \
             .to(torch.float32)
 
+    # one wave of the KEY: three planes of torch ops around three quantizer
+    # launches (wave_encode's plain version on CUDA tensors) | one launch
+    wave = next(c for c in _wave_cases(dev) if "68 blocks x 1 " in c[2])[3]
+    got, want = run_case(K, "wave_encode", wave)
+    err, rel, flipped = wave_error(got, want, wave)
+    if err != 0.0 or not rel <= 1e-6:
+        raise AssertionError("K4 wave: the two call paths differ (integer "
+                             f"outputs by {err:g}, costs by {rel:.3g})")
+
+    def k4_before():
+        return K.wave_encode_plain(*wave)
+
+    def k4_after():
+        return K.wave_encode(*wave)
+
+    def same(a, b):
+        return torch.equal(a, b) or (a.dtype == torch.float32
+                                     and torch.allclose(a, b, rtol=1e-6,
+                                                        atol=0))
+
     for label, before, after in (
+            ("K4 wave of 68 blocks: 3 x (edges, predictions, transforms, "
+             "quantize_b_vec, rate, inverse, argmin, scatter) | wave_encode",
+             k4_before, k4_after),
             ("K2 full res: windows -> int32 -> ssd_surface | "
              "ssd_surface_plane (uint8, bsz16 r16)", k2_before, k2_after),
             ("K2 half res: windows -> ssd_surface | ssd_surface_plane "
@@ -568,7 +737,7 @@ def phase_before_after(dev) -> None:
              "convolve_8tap_plane", k3_before, k3_after),
             ("K1 refine 3x3: 9 x (gather_windows, float, subtract, square, "
              "sum) | block_ssd_at", k1_before, k1_after)):
-        if not torch.equal(before(), after()):
+        if not same(before(), after()):
             raise AssertionError(f"{label}: the two call paths differ")
         b0 = cuda_ms(before)
         a0 = cuda_ms(after)
@@ -578,6 +747,8 @@ def phase_before_after(dev) -> None:
             f"({b0:.4f}, {b1:.4f}) | {(a0 + a1) / 2:.4f} ms "
             f"({a0:.4f}, {a1:.4f}); from a graph {graph_ms(before):.4f} | "
             f"{graph_ms(after):.4f} ms")
+    log(f"K4 wave, before/after: {flipped} block(s) of 68 whose two lowest "
+        "costs lie within 1e-6 and whose mode differs")
 
 
 def run_slice(dev, frames, kw):
@@ -618,6 +789,11 @@ EXPECTED = {
                 "avl_block_ssd_at": 13, "avl_gather_windows": 6,
                 "avl_ssd_surface": 0},
 }
+#: K4 in either slice: one fused launch a wave of the KEY (187 waves at
+#: 1080p) and 9 quantize_b_vec launches for each of the 7 chained frames
+for _exp in EXPECTED.values():
+    _exp.update({"avl_wave_encode": 187, "avl_quantize_b": 63,
+                 "quantize_b_vec": 250})
 
 
 def phase_slice(dev, frames, label, kw) -> dict:
@@ -640,7 +816,8 @@ def phase_slice(dev, frames, label, kw) -> dict:
     if wrong:
         raise AssertionError(f"{label} slice: launches (counted, expected) "
                              f"{wrong}")
-    want = {"gop/key", "gop/arf_encode", "gop/chain_device", "gop/emit"}
+    want = {"gop/key", "gop/arf_encode", "gop/chain_device", "gop/emit",
+            "key/waves", "key/fetch", "key/deblock", "key/emit"}
     if enc.enable_tpl and enc.enable_tf:
         want |= {"gop/tpl", "gop/temporal_filter"}
     if not want <= set(stages):
@@ -678,7 +855,7 @@ def phase_warm(dev, frames, label, kw, n: int) -> None:
         _, _, secs, _, stages = run_slice(dev, frames, kw)
         totals.append(secs)
         for k, v in stages.items():
-            if k.startswith("gop/"):
+            if k.startswith(("gop/", "key/")):
                 per_stage.setdefault(k, []).append(v)
     med = statistics.median(totals)
     log(f"warm slice {label} n={n}: median {med:.3f} s (min "
@@ -877,7 +1054,7 @@ def timed_path(label, fn, expected=None, need=()):
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; launches "
         f"{json.dumps(launches)}")
     for k, v in sorted(stages.items(), key=lambda kv: -kv[1]):
-        if k.startswith(("gop/", "rdo/")):
+        if k.startswith(("gop/", "rdo/", "key/")):
             log(f"  stage {k:<20} {v:8.3f} s")
     return out, secs, launches
 
@@ -887,8 +1064,8 @@ ALL_KERNELS = ("gather_windows", "ssd_surface", "convolve_8tap",
 #: per 1080p P frame over one reference with 1/8-pel MVs: 22 sub-pel
 #: predictions, 3 snap candidates and 2 chroma planes (27), and 7 per merge
 #: level (5 candidates, 2 chroma planes); K4 once per plane and level; a KEY
-#: is 187 waves x 3 planes
-K3_FIXED16, K3_MERGE, K4_KEY = 27, 27 + 2 * 7, 187 * 3
+#: is 187 waves, one fused K4 launch (wave_encode) each
+K3_FIXED16, K3_MERGE, K4_KEY = 27, 27 + 2 * 7, 187
 
 
 def phase_rdo_key(dev, tmp) -> dict:
@@ -967,7 +1144,8 @@ def phase_lowdelay(dev, tmp, frames) -> dict:
         expected={"ssd_surface": 2 * n_p, "avl_block_ssd_at": n_p,
                   "avl_gather_windows": 0,
                   "convolve_8tap": K3_MERGE * n_p,
-                  "quantize_b_vec": K4_KEY + 9 * n_p})
+                  "quantize_b_vec": K4_KEY + 9 * n_p,
+                  "avl_wave_encode": K4_KEY, "avl_quantize_b": 9 * n_p})
     shown, state = decode_payloads(read_payloads(path))
     n = require_slots_equal("low delay", enc.slots, state)
     log(f"  decode: {len(shown)} frames; {n} slot planes equal the encoder "
@@ -1000,7 +1178,8 @@ def phase_realtime(dev, tmp, frames) -> dict:
         expected={"ssd_surface": 2 * n_p, "avl_block_ssd_at": n_p,
                   "avl_gather_windows": 0,
                   "convolve_8tap": K3_FIXED16 * n_p,
-                  "quantize_b_vec": K4_KEY + 3 * n_p})
+                  "quantize_b_vec": K4_KEY + 3 * n_p,
+                  "avl_wave_encode": K4_KEY, "avl_quantize_b": 3 * n_p})
     shown, _ = decode_payloads(read_payloads(path))
     if len(shown) != len(frames):
         raise AssertionError(f"decoded {len(shown)} frames")
@@ -1099,8 +1278,9 @@ def phase_twopass(dev, tmp, frames) -> dict:
                                **KW_DEFAULT)
         return encs[0]
 
-    enc, secs2, launches = timed_path(f"two-pass {W}x{H}, {len(frames)} "
-                                      "frames", run, need=ALL_KERNELS)
+    enc, secs2, launches = timed_path(
+        f"two-pass {W}x{H}, {len(frames)} frames", run, need=ALL_KERNELS,
+        expected={"avl_wave_encode": K4_KEY, "avl_quantize_b": 63})
     back = load_stats(os.path.join(tmp, "fpstats"))
     if [s.to_array().tolist() for s in back] != \
             [s.to_array().tolist() for s in stats]:
@@ -1133,6 +1313,8 @@ def phase_intra_batch(dev, tmp, frames) -> dict:
             return encs
         return timed_path(f"batched all-intra {W}x{H}, {n} frame(s)", go,
                           expected={"quantize_b_vec": K4_KEY,
+                                    "avl_wave_encode": K4_KEY,
+                                    "avl_quantize_b": 0,
                                     "gather_windows": 0, "ssd_surface": 0,
                                     "convolve_8tap": 0})
 

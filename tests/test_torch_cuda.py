@@ -29,16 +29,57 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
     of K2 and K3 among them), and each launch counted once under its
     kernel's name."""
     import chip_smoke
-    for name, fn, label, args, _ in chip_smoke._cases(cuda_device):
+    for name, fn, label, args, *_ in chip_smoke._cases(cuda_device):
         name = chip_smoke.KERNELS[name][2]
         before = K.LAUNCHES[name]
-        got = getattr(K, fn)(*args)
+        getattr(K, fn)(*args)
         assert K.LAUNCHES[name] == before + 1
-        want = getattr(K, fn + "_plain")(*args)
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
+        got, want = chip_smoke.run_case(K, fn, args)
+        if fn == "wave_encode":
+            err, rel, _ = chip_smoke.wave_error(got, want, args)
+            assert err == 0.0 and rel <= 1e-6, f"{name} {label}"
+            continue
         for g, w in zip(got, want):
             assert torch.equal(g, w), f"{name} {label}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,h,n_frames", [(96, 64, 1), (96, 64, 3),
+                                          (80, 48, 2), (1920, 1088, 1)])
+def test_cuda_wave_encode_frame_matches_plain(cuda_device, w, h, n_frames):
+    """K4's fused entry on the card, wave after wave over whole frames
+    (each wave reads the recon the waves before it wrote), against the
+    same waves through its plain version: rows and recon equal, costs to
+    1e-6, one launch a wave counted under the kernel and under its entry."""
+    from aom_av1_lavish_torch.common import quant as Q
+    from aom_av1_lavish_torch.ops.wavefront import pq_array, wave_table
+    from aom_av1_lavish_torch.utils.clips import make_frames
+
+    frames = make_frames(n_frames, w, h)
+    src = [torch.as_tensor(np.stack([f[i] for f in frames]),
+                           device=cuda_device) for i in range(3)]
+    order, offsets = wave_table(h // 16, w // 16)
+    order = torch.as_tensor(order, device=cuda_device)
+    pq = torch.as_tensor(np.stack([pq_array(Q.build_plane_quant(100, 0, 0))
+                                   ] * 3), device=cuda_device)
+    sides = []
+    for fn in (K.wave_encode, K.wave_encode_plain):
+        rows = torch.zeros((n_frames, order.numel(), 390), dtype=torch.int16,
+                           device=cuda_device)
+        recon = [torch.zeros_like(p) for p in src]
+        K.reset_launches()
+        costs = [fn(rows, *recon, *src, order, offsets[d],
+                    offsets[d + 1] - offsets[d], pq, 55.0)
+                 for d in range(len(offsets) - 1)]
+        if fn is K.wave_encode:
+            assert K.LAUNCHES["quantize_b_vec"] == len(offsets) - 1
+            assert K.ENTRY_LAUNCHES == {"avl_wave_encode": len(offsets) - 1}
+        sides.append((rows, recon, torch.cat(costs, 1)))
+    (rows_k, recon_k, cost_k), (rows_p, recon_p, cost_p) = sides
+    assert torch.equal(rows_k, rows_p)
+    for a, b in zip(recon_k, recon_p):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(cost_k, cost_p, rtol=1e-6, atol=0)
 
 
 @pytest.mark.cuda

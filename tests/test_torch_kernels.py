@@ -518,3 +518,228 @@ def test_cpu_tensors_run_the_plain_versions_and_launch_nothing():
     base = torch.zeros(3, dtype=torch.int32)
     K.gather_windows(plane, base, base, 4, 4)
     assert all(v == 0 for v in K.LAUNCHES.values())
+
+
+# ---------------------------------------------------------------------------
+# K4's fused entry: the tables handed to the wave kernel, and a numpy model
+# of the kernel's data path run from those tables alone
+
+
+def _wave_table_part(key, size):
+    o = K.WAVE_TABLE_OFFSETS[key]
+    return K.wave_tables()[o:o + size]
+
+
+@pytest.mark.parametrize("n,part,inverse", [
+    (16, "fdct16_col", False), (16, "fdct16_row", False),
+    (16, "idct16", True), (8, "fdct8_col", False), (8, "fdct8_row", False),
+    (8, "idct8", True)])
+def test_wave_stage_tables_equal_the_transform_stages(n, part, inverse):
+    """The stage tables the wave kernel interprets are fdct_stages and
+    idct_stages of the port's common/txfm1d.py (and of the JAX package's)
+    at the cos bits of common/txfm2d.py, entry for entry."""
+    from aom_av1_lavish_tpu.common import txfm1d as RT1
+    from aom_av1_lavish_torch.common import txfm1d as T1
+    from aom_av1_lavish_torch.common import txfm2d as T2
+    idx = n.bit_length() - 3
+    cos_bit = (T1.INV_COS_BIT if inverse else
+               (T2._FWD_COS_BIT_ROW if part.endswith("row")
+                else T2._FWD_COS_BIT_COL)[idx][idx])
+    for mod in (T1, RT1):
+        stages = (mod.idct_stages if inverse else mod.fdct_stages)(n, cos_bit)
+        want = np.asarray(stages, np.int64)
+        assert want.shape == (len(stages), n, 5)
+        got = _wave_table_part(part, want.size).reshape(want.shape)
+        np.testing.assert_array_equal(got, want)
+    params = _wave_table_part(f"params{n}", 8)
+    assert params[7] == len(stages)
+    assert params[1 if part.endswith("row") else 0] == cos_bit or inverse
+
+
+@pytest.mark.parametrize("n", [8, 16])
+def test_wave_tables_scans_params_and_layout(n):
+    """Scan positions (the kernel keeps flat coefficient c * n + r at
+    position r * n + c), shifts, weights and modes; and the parts tile the
+    array without overlap."""
+    from aom_av1_lavish_torch.bitstream import constants as c
+    from aom_av1_lavish_torch.bitstream import tables
+    from aom_av1_lavish_torch.common import txfm2d as T2
+    from aom_av1_lavish_torch.common.intra import SMOOTH_WEIGHTS
+    tx = c.TX_16X16 if n == 16 else c.TX_8X8
+    scan_p = _wave_table_part("scan_y" if n == 16 else "scan_c", n * n)
+    flat = scan_p % n * n + scan_p // n             # the map is its inverse
+    np.testing.assert_array_equal(flat, tables.scan(tx, c.DCT_DCT))
+    assert sorted(scan_p) == list(range(n * n))
+    params = _wave_table_part(f"params{n}", 8)
+    assert tuple(params[2:5]) == T2.FWD_SHIFT[tx]
+    assert tuple(params[5:7]) == T2.INV_SHIFT[tx]
+    np.testing.assert_array_equal(_wave_table_part("smooth16", 16),
+                                  SMOOTH_WEIGHTS[16])
+    assert tuple(_wave_table_part("modes", 7)) == WT.WAVE_MODES \
+        == WJ.WAVE_MODES
+    off = K.WAVE_TABLE_OFFSETS
+    sizes = {"fdct16_col": 560, "fdct16_row": 560, "idct16": 560,
+             "fdct8_col": 200, "fdct8_row": 200, "idct8": 200,
+             "scan_y": 256, "scan_c": 64, "smooth16": 16, "modes": 8,
+             "params16": 8, "params8": 8}
+    at = 0
+    for key, size in sizes.items():
+        assert off[key] == at
+        at += size
+    assert off["total"] == at == K.wave_tables().size
+    assert K.wave_tables().dtype == np.int32
+
+
+def _model_pass(x, tab, n, cos_bit, along_rows, inverse, post, clamp_out):
+    """One 1-D pass of the wave kernel over one block held as positions
+    p = hi * n + lo (csrc/wave_encode.cu txfm_pass), in int64 numpy."""
+    def c16(v):
+        return min(max(v, -32768), 32767)
+    cur = [int(v) for v in x]
+    for s in range(tab.shape[0]):
+        out = [0] * (n * n)
+        for p in range(n * n):
+            hi, lo = divmod(p, n)
+            i, line, es = (lo, hi * n, 1) if along_rows else (hi, lo, n)
+            kind, s0, s1, w0, w1 = (int(v) for v in tab[s, i])
+            a, b = cur[line + s0 * es], cur[line + s1 * es]
+            if kind == 2:
+                v = (a * w0 + b * w1 + (1 << (cos_bit - 1))) >> cos_bit
+            elif kind == 1:
+                v = a * w0 + b * w1
+                v = c16(v) if inverse else v
+            else:
+                v = a * w0
+            if s == tab.shape[0] - 1:
+                v = (v + (1 << (post - 1))) >> post if post > 0 else v << -post
+                v = c16(v) if clamp_out else v
+            out[p] = v
+        cur = out
+    return cur
+
+
+@pytest.mark.parametrize("n,qindex,spread", [(16, 100, 40), (16, 20, 255),
+                                             (16, 200, 3), (8, 100, 40),
+                                             (8, 20, 255), (8, 200, 3)])
+def test_wave_kernel_data_path_model_matches_the_torch_ops(n, qindex, spread):
+    """What the wave kernel does to one block, modelled in numpy from
+    wave_tables() alone (its positions, passes, shifts, clamps, quantizer
+    and scan), equals the torch ops of the plain version: coefficients,
+    levels, eob and recon."""
+    from aom_av1_lavish_torch.bitstream import constants as c
+    from aom_av1_lavish_torch.bitstream import tables
+    from aom_av1_lavish_torch.ops import txfm as TX
+    tx = c.TX_16X16 if n == 16 else c.TX_8X8
+    rng = np.random.default_rng(n + qindex)
+    if spread == 40:      # a smooth residual: a few low-frequency levels
+        pred = rng.integers(64, 192, (n, n))
+        rr, cc = np.mgrid[0:n, 0:n]
+        src = pred + np.rint(spread * np.cos(np.pi * (rr + 0.5) / n)
+                             * np.cos(np.pi * (cc + 0.5) / n)).astype(int)
+    else:                 # noise: no level (spread 3) or all of them
+        pred = rng.integers(0, 256, (n, n))
+        src = (pred + rng.integers(-spread, spread + 1, (n, n))).clip(0, 255)
+    cb_col, cb_row, f0, f1, f2, i0, i1, st = (
+        int(v) for v in _wave_table_part(f"params{n}", 8))
+    tabs = {k: _wave_table_part(f"{k}{n}{sfx}", st * n * 5).reshape(st, n, 5)
+            for k, sfx in (("fdct", "_col"), ("idct", ""))}
+    tabs["row"] = _wave_table_part(f"fdct{n}_row", st * n * 5) \
+        .reshape(st, n, 5)
+    x = [int(v) << f0 for v in (src - pred).reshape(-1)]
+    x = _model_pass(x, tabs["fdct"], n, cb_col, False, False, -f1, False)
+    x = _model_pass(x, tabs["row"], n, cb_row, True, False, -f2, False)
+    pq = WT.pq_array(Q.build_plane_quant(qindex, 0, 0)).astype(np.int64)
+    q, dq = [], []
+    for p, v in enumerate(x):
+        zbin, rnd, quant, qshift, deq = pq[:, 0 if p == 0 else 1]
+        tmp = min(max(abs(v) + rnd, -32768), 32767)
+        t = (((tmp * quant) >> 16) + tmp) * qshift >> 16
+        t = int(t) if abs(v) >= zbin else 0
+        sign = -1 if v < 0 else 1
+        q.append(sign * t)
+        dq.append(min(max(sign * t * int(deq), -32768), 32767))
+    scan_p = _wave_table_part("scan_y" if n == 16 else "scan_c", n * n)
+    eob = max([j + 1 for j, p in enumerate(scan_p) if q[p]] + [0])
+    y = _model_pass(dq, tabs["idct"], n, 12, True, True, -i0, True)
+    y = _model_pass(y, tabs["idct"], n, 12, False, True, -i1, False)
+    rec = (pred.reshape(-1) + np.asarray(y)).clip(0, 255) if eob \
+        else pred.reshape(-1)
+    pos = np.arange(n * n) % n * n + np.arange(n * n) // n   # flat -> position
+    coeff = TX.fwd_txfm2d_batched(
+        torch.from_numpy((src - pred)[None].astype(np.int32)), tx, c.DCT_DCT)
+    np.testing.assert_array_equal(np.asarray(x)[pos], coeff[0].numpy())
+    wq, wdq = WT.quantize(coeff, torch.from_numpy(pq.astype(np.int32)), 0,
+                          torch.arange(n * n) == 0)
+    np.testing.assert_array_equal(np.asarray(q)[pos], wq[0].numpy())
+    _, weob = WT.est_bits(wq, torch.tensor(tables.scan(tx, c.DCT_DCT),
+                                           dtype=torch.int64))
+    assert eob == int(weob[0])
+    if spread == 40:
+        assert 0 < eob < n * n
+    wrec = TX.inv_txfm2d_add_batched(
+        wdq, torch.from_numpy(pred[None].astype(np.uint8)), tx, c.DCT_DCT)
+    np.testing.assert_array_equal(rec.reshape(n, n), wrec[0].numpy())
+
+
+def test_wave_encode_checks_dtype_shape_and_device():
+    def planes(h=32, w=48, n=1):
+        return ([torch.zeros((n, h, w), dtype=torch.uint8)]
+                + [torch.zeros((n, h // 2, w // 2), dtype=torch.uint8)
+                   for _ in range(2)])
+    rows = torch.zeros((1, 6, 390), dtype=torch.int16)
+    order = torch.arange(6, dtype=torch.int32)
+    pq = torch.ones((3, 5, 2), dtype=torch.int32)
+    ok = (rows, *planes(), *planes(), order, 0, 1, pq, 10.0)
+
+    def call(**kw):
+        names = ("rows", "ry", "ru", "rv", "src_y", "src_u", "src_v", "order",
+                 "start", "count", "pq", "lam")
+        return K.wave_encode(*[kw.get(k, v) for k, v in zip(names, ok)])
+
+    assert tuple(call().shape) == (1, 1, 7)
+    with pytest.raises(ValueError, match="contiguous .* uint8"):
+        call(ry=planes()[0].int())
+    with pytest.raises(ValueError, match="multiples of 16"):
+        call(src_y=torch.zeros((1, 24, 48), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="one 4:2:0 geometry"):
+        call(ru=torch.zeros((1, 16, 25), dtype=torch.uint8))
+    with pytest.raises(ValueError, match=r"int16 \(1, 6, 390\)"):
+        call(rows=torch.zeros((1, 6, 389), dtype=torch.int16))
+    with pytest.raises(ValueError, match=r"int32 \(6,\)"):
+        call(order=order.long())
+    with pytest.raises(ValueError, match="inside order"):
+        call(start=4, count=3)
+    with pytest.raises(ValueError, match=r"\(3, 5, 2\)"):
+        call(pq=pq[:2])
+    meta = torch.empty((1, 6, 390), dtype=torch.int16, device="meta")
+    with pytest.raises(ValueError, match="expected all on the CPU"):
+        call(rows=meta)
+
+
+def test_wave_encode_on_cpu_tensors_is_its_plain_version():
+    """On CPU tensors the wrapper runs wave_encode_plain and launches
+    nothing; rows outside the wave's blocks are left alone."""
+    rng = np.random.default_rng(8)
+    src = [torch.from_numpy(rng.integers(0, 256, s).astype(np.uint8))
+           for s in ((2, 32, 48), (2, 16, 24), (2, 16, 24))]
+    order_np, offsets = WT.wave_table(2, 3)
+    order = torch.from_numpy(order_np)
+    pq = torch.from_numpy(np.stack([WT.pq_array(Q.build_plane_quant(90, 0, 0))
+                                    ] * 3))
+    K.reset_launches()
+    sides = []
+    for fn in (K.wave_encode, K.wave_encode_plain):
+        rows = torch.full((2, 6, 390), -7, dtype=torch.int16)
+        recon = [torch.zeros_like(p) for p in src]
+        costs = [fn(rows, *recon, *src, order, offsets[d],
+                    offsets[d + 1] - offsets[d], pq, 30.0) for d in range(2)]
+        sides.append((rows, recon, costs))
+    assert all(v == 0 for v in K.LAUNCHES.values())
+    assert torch.equal(sides[0][0], sides[1][0])
+    for a, b in zip(sides[0][1] + sides[0][2], sides[1][1] + sides[1][2]):
+        assert torch.equal(a, b)
+    rows = sides[0][0]
+    done = order[:offsets[2]].long()
+    rest = order[offsets[2]:].long()
+    assert (rows[:, rest] == -7).all() and (rows[:, done, 4:6] == 0).all()
+    assert set(rows[:, done, 0].flatten().tolist()) <= set(WT.WAVE_MODES)

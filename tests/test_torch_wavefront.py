@@ -151,3 +151,142 @@ def test_key_frame_payload_and_recon_match_jax():
     assert out[0][0] == out[1][0]
     for a, b in zip(out[0][1], out[1][1]):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the wave table and kernels.wave_encode (kernel K4's fused entry; on the
+# CPU its plain version), wave by wave, against the JAX WavefrontEncoder
+
+
+@pytest.mark.parametrize("nbr,nbc", [(4, 6), (3, 5), (6, 3), (1, 7), (5, 1),
+                                     (68, 120)])
+def test_wave_table_covers_every_block_once_in_dependency_order(nbr, nbc):
+    order, offsets = WT.wave_table(nbr, nbc)
+    assert order.dtype == np.int32
+    assert sorted(order.tolist()) == list(range(nbr * nbc))
+    assert offsets[0] == 0 and offsets[-1] == nbr * nbc
+    assert len(offsets) == nbr + nbc
+    wave_of = np.empty(nbr * nbc, np.int64)
+    for d in range(nbr + nbc - 1):
+        blocks = order[offsets[d]:offsets[d + 1]]
+        assert 0 < len(blocks) <= min(nbr, nbc)
+        assert (blocks // nbc + blocks % nbc == d).all()
+        assert (np.diff(blocks // nbc) > 0).all()       # rows ascending
+        wave_of[blocks] = d
+    # the blocks a prediction reads from (top, left, top-left) come earlier
+    for b in range(nbr * nbc):
+        r, x = divmod(b, nbc)
+        for dr, dx in ((-1, 0), (0, -1), (-1, -1)):
+            if r + dr >= 0 and x + dx >= 0:
+                assert wave_of[(r + dr) * nbc + x + dx] < wave_of[b]
+    # the reference's geometry: the same blocks in the same waves
+    _, _, _, waves, _, _ = WJ.WavefrontEncoder(100, 1.0)._wave_geometry(
+        nbr * 16, nbc * 16)
+    assert [[r * nbc + x for r, x in w] for w in waves] == \
+        [order[offsets[d]:offsets[d + 1]].tolist()
+         for d in range(nbr + nbc - 1)]
+
+
+def _frames(n, w, h, seed):
+    return [_frame(w, h, seed=seed + i) for i in range(n)]
+
+
+WAVE_CASES = {"96x64 N1": (96, 64, 1), "96x64 N3": (96, 64, 3),
+              "80x48 N1": (80, 48, 1), "48x80 N3": (48, 80, 3)}
+
+
+@pytest.fixture(scope="module")
+def wave_runs():
+    """Each case once: the JAX encoder's frames, and the same frames wave
+    by wave through kernels.wave_encode on CPU tensors."""
+    from aom_av1_lavish_torch.ops import kernels as K
+    cache = {}
+
+    def run(case):
+        if case in cache:
+            return cache[case]
+        w, h, n = WAVE_CASES[case]
+        frames = _frames(n, w, h, seed=11)
+        lam = 0.12 * 30.0 ** 2
+        ref = WJ.WavefrontEncoder(100, lam).encode_frames_raw(frames)
+        src = [torch.from_numpy(np.stack([f[i] for f in frames]))
+               for i in range(3)]
+        recon = [torch.zeros_like(p) for p in src]
+        nbr, nbc = h // 16, w // 16
+        order_np, offsets = WT.wave_table(nbr, nbc)
+        order = torch.from_numpy(order_np)
+        pq = torch.from_numpy(np.stack(
+            [WT.pq_array(p) for p in WT.WavefrontEncoder(
+                100, lam, device="cpu").pq]))
+        rows = torch.zeros((n, nbr * nbc, 390), dtype=torch.int16)
+        costs = []
+        for d in range(nbr + nbc - 1):
+            count = offsets[d + 1] - offsets[d]
+            cost = K.wave_encode(rows, *recon, *src, order, offsets[d], count,
+                                 pq, lam)
+            assert cost.dtype == torch.float32
+            assert tuple(cost.shape) == (n, count, 7)
+            costs.append(cost)
+        cache[case] = (ref, rows.numpy(), [p.numpy() for p in recon],
+                       torch.cat(costs, 1).numpy(), order_np)
+        return cache[case]
+
+    return run
+
+
+@pytest.mark.parametrize("case", list(WAVE_CASES))
+def test_wave_encode_rows_equal_the_jax_encoder(wave_runs, case):
+    ref, rows, _, _, _ = wave_runs(case)
+    for i, (_, r390, _) in enumerate(ref):
+        assert r390.dtype == rows.dtype == np.int16
+        np.testing.assert_array_equal(rows[i], r390)
+
+
+@pytest.mark.parametrize("case", list(WAVE_CASES))
+def test_wave_encode_modes_and_eobs_equal_the_jax_encoder(wave_runs, case):
+    ref, rows, _, _, _ = wave_runs(case)
+    w = WAVE_CASES[case][0]
+    for i, (results, _, _) in enumerate(ref):
+        assert len(results) == rows.shape[1]
+        for (r, x), res in results.items():
+            row = rows[i, r * (w // 16) + x]
+            assert (row[0], row[1], row[2], row[3]) == \
+                (res["y_mode"], res["eoby"], res["eobu"], res["eobv"])
+        assert (rows[i, :, 1] > 0).any()       # the clip codes something
+
+
+@pytest.mark.parametrize("case", list(WAVE_CASES))
+def test_wave_encode_recon_equals_the_jax_encoder(wave_runs, case):
+    ref, _, recon, _, _ = wave_runs(case)
+    for i, (_, _, planes) in enumerate(ref):
+        for got, want in zip(recon, planes):
+            assert got.dtype == np.uint8
+            np.testing.assert_array_equal(got[i], np.asarray(want))
+
+
+@pytest.mark.parametrize("case", list(WAVE_CASES))
+def test_wave_encode_costs_pick_the_coded_mode(wave_runs, case):
+    """The costs a wave returns are those its decision was taken on: the
+    first minimum over the 7 modes is the mode in the block's row."""
+    _, rows, _, costs, order = wave_runs(case)
+    assert np.isfinite(costs).all() and (costs > 0).all()
+    picked = np.asarray(WT.WAVE_MODES)[costs.argmin(-1)]
+    np.testing.assert_array_equal(picked, rows[:, order, 0])
+
+
+def test_encoder_runs_one_wave_encode_call_a_wave(monkeypatch):
+    """encode_frames_raw is the table, one wave_encode call a wave with
+    the wave's offset and count, and one fetch."""
+    calls = []
+    orig = WT.wave_encode
+
+    def spy(rows, *a):
+        calls.append((tuple(rows.shape), a[7], a[8]))
+        return orig(rows, *a)
+
+    monkeypatch.setattr(WT, "wave_encode", spy)
+    WT.WavefrontEncoder(100, 50.0, device="cpu").encode_frames_raw(
+        _frames(2, 80, 48, seed=3))
+    _, offsets = WT.wave_table(3, 5)
+    assert calls == [((2, 15, 390), offsets[d], offsets[d + 1] - offsets[d])
+                     for d in range(7)]
