@@ -3,7 +3,8 @@
 Counterpart of aom_av1_lavish_tpu/encoder/gop.py with its device calls on
 torch: the KEY goes to the device-RDO encoder (TpuRdoAllIntraEncoder, frames
 up to 720x576) or the wavefront encoder (TorchAllIntraEncoder), each GF
-group's hidden ARF and chained P frames to ops.inter.DeviceChainEncoder,
+group's hidden ARF and chained P frames to ops.inter.DeviceChainEncoder
+(frame-parallel groups' P frames to parallel/sharding.fpmt_encode_group),
 and single P frames (groups under 3 frames, use_arf=False) to
 TpuInterFrameEncoder's own device encode; GOP structure, rate control,
 headers, slot bookkeeping and the host emit are the reference's.
@@ -57,10 +58,10 @@ class GopEncoder:
     all from one upload of the group's source planes; GF groups under 3
     frames and use_arf=False code single P frames on the device.
     use_tpu=False is the host RD path; of it only TPL and the temporal
-    filter run on the device.
-
-    Not ported yet (raises): frame-parallel groups (ROADMAP Queue 1
-    item 16)."""
+    filter run on the device.  frame_parallel=True (with use_tpu) codes
+    each group's P frames against the fixed (LAST, ARF) pair with no
+    chaining (parallel/sharding.fpmt_encode_group); `mesh` is a batch
+    layout on `device` from parallel/sharding.make_mesh, or None."""
 
     def __init__(self, width: int, height: int, device=None,
                  rc_cfg: RateControlConfig | None = None,
@@ -167,10 +168,6 @@ class GopEncoder:
         # S-frame cadence (aom_encoder.h:785 sframe_dist): every Nth
         # display frame in low-delay coding becomes a SWITCH_FRAME
         self.sframe_dist = sframe_dist
-        if self.frame_parallel:
-            raise NotImplementedError(
-                "frame-parallel GF groups are not ported yet (ROADMAP "
-                "Queue 1 item 16)")
         if self.use_tpu and not (self.sh.max_frame_width % 16 == 0
                                  and self.sh.max_frame_height % 16 == 0):
             raise ValueError("the device path needs width and height that "
@@ -702,16 +699,21 @@ class GopEncoder:
                                             bd=self.sh.bit_depth)
                    for q in qs]
             if self.frame_parallel:
-                raise NotImplementedError(
-                    "frame-parallel GF groups (parallel/sharding "
-                    "fpmt_encode_group) are not ported yet (ROADMAP "
-                    "Queue 1 item 16)")
-            with profile("gop/chain_device"):
-                raws, recons = DeviceChainEncoder(
-                    self.device).encode_chain(
-                    dev_group[:L - 1], qs, self.slots[self.last_slot],
-                    self.slots[self.arf_slot], lf_levels=lfs,
-                    sharpness=self.lf_sharpness)
+                from ..parallel.sharding import fpmt_encode_group
+                with profile("gop/chain_device"):
+                    raws, recons = fpmt_encode_group(
+                        self.mesh, dev_group[:L - 1], qs,
+                        self.slots[self.last_slot],
+                        self.slots[self.arf_slot], lf_levels=lfs,
+                        sharpness=self.lf_sharpness, device=self.device)
+                fpmt = True
+            else:
+                with profile("gop/chain_device"):
+                    raws, recons = DeviceChainEncoder(
+                        self.device).encode_chain(
+                        dev_group[:L - 1], qs, self.slots[self.last_slot],
+                        self.slots[self.arf_slot], lf_levels=lfs,
+                        sharpness=self.lf_sharpness)
             chain = (qs, raws, recons)
         tus = []
         for j in range(L - 1):

@@ -24,6 +24,7 @@ same winner.
 
 from __future__ import annotations
 
+import os
 from functools import lru_cache
 
 import numpy as np
@@ -258,7 +259,11 @@ def _subpel_refine(sy_blk, refp_y, y0, x0, bsz, best_dy, best_dx, W, H,
 
 def _rd_dropout(qc, dqc, scan, inv_scan, lam, tx_size, rbits=1.0):
     """Trellis-lite tail dropout: cut the scan tail where the suffix sum
-    of (K*dq^2 - lam*bits) over dropped nonzeros is most negative."""
+    of (K*dq^2 - lam*bits) over dropped nonzeros is most negative.  With
+    AVL_NO_DROPOUT set in the environment (read at each call) nothing is
+    dropped."""
+    if os.environ.get("AVL_NO_DROPOUT"):
+        return qc, dqc
     K = _TX_SSE_K.get(int(tx_size), 0.02)
     qs = qc.index_select(-1, scan)
     ds = dqc.index_select(-1, scan).to(torch.float32)
@@ -636,6 +641,58 @@ def to_device_state(planes_list, qindexes, device):
     return planes, per_q
 
 
+def upload_group(src_frames, ref_frames, qindexes, device):
+    """A group's sources and reference frames cropped to the sources'
+    16-aligned size and uploaded once (numpy planes, or tensors already on
+    `device`), with each frame's quantizer state -> (sources, references,
+    per-frame quantizer dicts)."""
+    H, W = src_frames[0][0].shape[:2]
+    assert H % 16 == 0 and W % 16 == 0
+    planes, per_q = to_device_state(
+        [_crop(f, H, W) for f in (*src_frames, *ref_frames)], qindexes,
+        device)
+    L = len(src_frames)
+    return planes[:L], planes[L:], per_q
+
+
+def deblock_levels(lf_levels, L):
+    """Per-frame (y, u, v) deblock levels from an int or a triple per
+    frame (None = all 0, unfiltered)."""
+    if lf_levels is None:
+        lf_levels = [0] * L
+    return [tuple(lv) if isinstance(lv, (tuple, list)) else (lv,) * 3
+            for lv in lf_levels]
+
+
+def p_frame_deblocked(src, refs, q, lf, sharpness, interp):
+    """One P frame over `refs` (pad_ref states) with its leaf-mask deblock
+    at levels `lf` -> (raw dict of device tensors: r16 r32 r64 lvl filt,
+    deblocked (y, u, v) planes)."""
+    H, W = src[0].shape
+    ry, ru, rv, ry2 = (list(t) for t in zip(*refs))
+    out = p_frame(*src, ry, ru, rv, ry2, *q["pq"], q["lam"], q["hp"],
+                  interp=interp)
+    rec = deblock_leafmask(*split_recon(out["rec"], H, W), *lf,
+                           _leaf_ids(out["lvl"]), sharpness=sharpness)
+    raw = dict(r16=out["r16"], r32=out["r32"], r64=out["r64"],
+               lvl=out["lvl"], filt=out["fsel"])
+    return raw, rec
+
+
+def fetch_group(raws, recs):
+    """A group's device results on the host: raws[j] as numpy arrays with
+    `filt` an int, recs[j] deblocked (y, u, v) tensors (or None) as numpy
+    planes."""
+    host = []
+    for raw in raws:
+        d = {k: v.cpu().numpy() for k, v in raw.items() if k != "filt"}
+        d["filt"] = int(raw["filt"])
+        host.append(d)
+    recons = [None if r is None else
+              tuple(p.cpu().numpy() for p in r) for r in recs]
+    return host, recons
+
+
 class DeviceChainEncoder:
     """Whole-GF-group batched P-frame encode: L frames chained on the
     device (LAST = the previous frame's deblocked recon, plus an
@@ -657,50 +714,22 @@ class DeviceChainEncoder:
         device before a recon becomes the next LAST (None = unfiltered);
         the frame headers must signal the same levels."""
         L = len(src_frames)
-        H, W = src_frames[0][0].shape[:2]
-        assert H % 16 == 0 and W % 16 == 0
-        Hc, Wc = H >> 1, W >> 1
-        crop = [(f[0][:H, :W], f[1][:Hc, :Wc], f[2][:Hc, :Wc])
-                for f in src_frames]
         refs = [last_planes] + ([arf_planes] if arf_planes is not None
                                 else [])
-        refs = [(r[0][:H, :W], r[1][:Hc, :Wc], r[2][:Hc, :Wc])
-                for r in refs]
-        planes, per_q = to_device_state(crop + refs, qindexes, self.device)
-        srcs, (last, *arf) = planes[:L], planes[L:]
-        if lf_levels is None:
-            lf_levels = [0] * L
-        lfs = [tuple(lv) if isinstance(lv, (tuple, list)) else (lv,) * 3
-               for lv in lf_levels]
-        arf_ref = pad_ref(*arf[0]) if arf else None
+        srcs, (last, *arf), per_q = upload_group(
+            src_frames, refs, qindexes, self.device)
+        lfs = deblock_levels(lf_levels, L)
+        arf_ref = [pad_ref(*arf[0])] if arf else []
         state = pad_ref(*last)
         raws, recs = [], []
         for j in range(L):
-            refs_j = [state] + ([arf_ref] if arf_ref is not None else [])
-            ry, ru, rv, ry2 = (list(t) for t in zip(*refs_j))
-            qs = per_q[j]
-            out = p_frame(*srcs[j], ry, ru, rv, ry2, *qs["pq"], qs["lam"],
-                          qs["hp"], interp=interp_search)
-            rec_y, rec_u, rec_v = deblock_leafmask(
-                *split_recon(out["rec"], H, W), *lfs[j],
-                _leaf_ids(out["lvl"]), sharpness=sharpness)
-            state = pad_ref(rec_y, rec_u, rec_v)
-            raws.append(dict(r16=out["r16"], r32=out["r32"],
-                             r64=out["r64"], lvl=out["lvl"],
-                             filt=out["fsel"]))
-            if recon == "all" or j == L - 1:
-                recs.append(torch.cat([rec_y, torch.cat([rec_u, rec_v], 1)],
-                                      0))
-            else:
-                recs.append(None)
-        host = []
-        for raw in raws:
-            d = {k: v.cpu().numpy() for k, v in raw.items() if k != "filt"}
-            d["filt"] = int(raw["filt"])
-            host.append(d)
-        recons = [None if r is None else split_recon(r.cpu().numpy(), H, W)
-                  for r in recs]
-        return host, recons
+            raw, rec = p_frame_deblocked(srcs[j], [state] + arf_ref,
+                                         per_q[j], lfs[j], sharpness,
+                                         interp_search)
+            state = pad_ref(*rec)
+            raws.append(raw)
+            recs.append(rec if recon == "all" or j == L - 1 else None)
+        return fetch_group(raws, recs)
 
 
 def pack_frame_results(res_buf, W):

@@ -35,18 +35,25 @@
 5. Drives the other device paths, each with the launch counters reset just
    before it and read just after, each decoded with the port's decoder
    and held against the encoder's recon (or, lossless, the source):
-   the device-RDO KEY in the default configuration at 720x576 and 352x288
+   the default 1080p GOP with frame-parallel groups (FPMT,
+   parallel/sharding.fpmt_encode_group: the chained slice's launches,
+   stated counts per P frame, the same bytes on make_mesh(4, 1)), the
+   same encode through the CLI (the clip as y4m, apps.enc --tpu --fp-mt 1,
+   apps.dec), ShardedLosslessEncoder at 1920x1088 on make_mesh(2, 2), the
+   device-RDO KEY in the default configuration at 720x576 and 352x288
    (with the trial sweep of a 720x576 plane timed on its own), low delay
    and realtime at 1920x1088, GOPs with short groups (gf_length 2,
    use_arf off) at 352x288, lossless at 1920x1088, the first pass and the
    two-pass encode at 1920x1088, and the batched all-intra entry at
    1920x1088 with 4 frames beside 1.
-6. Runs every one of those paths at 96x64 on the card and on the CPU: the
-   streams must be equal byte for byte and the first-pass stats equal to
-   1e-5.
+6. Runs every one of those paths at 96x64 on the card and on the CPU (and
+   the FPMT GOP, ShardedInterGopEncoder and the api.Encoder lossless and
+   GOP routes), then the 352x288 cpu_used 8 GOP: the streams must be equal
+   byte for byte and the first-pass stats equal to 1e-5.
 
 With --warm N each configuration's slice is run N more times and the
-stage medians are printed; with --profile one more default-configuration
+stage medians are printed (and N runs of the default configuration with
+frame-parallel groups); with --profile one more default-configuration
 slice runs under torch.profiler and the device time of each hand kernel
 and the device-busy share are printed.
 
@@ -77,6 +84,7 @@ PADR = 64
 KW_DEFAULT = dict(qindex=QINDEX, gf_length=8, use_tpu=True,
                   enable_cdef=False)
 KW_CPU8 = dict(KW_DEFAULT, cpu_used=8)
+KW_FPMT = dict(KW_DEFAULT, frame_parallel=True)
 PK = "aom_av1_lavish_tpu/ops/pallas_kernels.py"
 CSRC = "aom_av1_lavish_torch/ops/csrc"
 #: record name -> (source, the TPU kernel it replaces, the LAUNCHES key its
@@ -1338,19 +1346,205 @@ def phase_intra_batch(dev, tmp, frames) -> dict:
     return {"intra_batch": launches}
 
 
+@contextlib.contextmanager
+def launches_per_call(module, name: str, calls: list):
+    """Wraps `module.<name>` while the block runs: each call appends (its
+    positional arguments, the kernel launches it made) to `calls`."""
+    from aom_av1_lavish_torch.ops import kernels as K
+
+    orig = getattr(module, name)
+
+    def spy(*a, **k):
+        before = dict(K.LAUNCHES, **K.ENTRY_LAUNCHES)
+        try:
+            return orig(*a, **k)
+        finally:
+            after = dict(K.LAUNCHES, **K.ENTRY_LAUNCHES)
+            calls.append((a, {key: v - before.get(key, 0)
+                              for key, v in after.items()}))
+
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def fpmt_per_frame(qindex: int) -> dict:
+    """Launches of one 1080p P frame of a frame-parallel group, both
+    references searched: per reference two K2 surfaces (full and half
+    res) and one fused K1 refine; K3 90 (1/8-pel MVs, q < 128) or 82:
+    each reference's sub-pel refine, the snap candidates, the three
+    interp-filter banks, two chroma planes, and 7 a merge level; K4 once
+    per plane and level."""
+    return {"ssd_surface": 4, "avl_ssd_surface_plane": 4,
+            "gather_windows": 2, "avl_block_ssd_at": 2,
+            "avl_gather_windows": 0,
+            "convolve_8tap": 90 if qindex < 128 else 82,
+            "quantize_b_vec": 9, "avl_quantize_b": 9, "avl_wave_encode": 0}
+
+
+def require_group_launches(label, calls) -> None:
+    """Each fpmt_encode_group call launched fpmt_per_frame's counts for
+    each of its frames."""
+    if not calls:
+        raise AssertionError(f"{label}: no frame-parallel group ran")
+    for args, got in calls:
+        want = {}
+        for q in args[2]:
+            for k, v in fpmt_per_frame(q).items():
+                want[k] = want.get(k, 0) + v
+        wrong = {k: (got.get(k, 0), v) for k, v in want.items()
+                 if got.get(k, 0) != v}
+        if wrong:
+            raise AssertionError(f"{label}: group of {len(args[2])} P "
+                                 f"frames, launches (counted, expected) "
+                                 f"{wrong}")
+        log(f"  {label}: group of {len(args[2])} P frames (q "
+            f"{list(args[2])}), per P frame "
+            f"{json.dumps({k: v // len(args[2]) for k, v in got.items()})}")
+
+
+def phase_fpmt(dev, frames, slice_launches):
+    """The default-configuration 1080p GOP with frame-parallel groups
+    (GopEncoder(frame_parallel=True) -> parallel/sharding
+    fpmt_encode_group): launches per P frame and in all (the same as the
+    chained slice's, frame for frame), decoded by the port's decoder
+    against the encoder's recon, and the same bytes on a make_mesh(4, 1)
+    layout -> (launches, payloads, shown frames)."""
+    from aom_av1_lavish_torch.encoder.gop import GopEncoder
+    from aom_av1_lavish_torch.parallel import sharding
+
+    groups = []
+
+    def run(mesh=None):
+        with launches_per_call(sharding, "fpmt_encode_group", groups):
+            enc = GopEncoder(W, H, device=dev, mesh=mesh, **KW_FPMT)
+            return enc, enc.encode_sequence(frames)
+
+    (enc, payloads), _, launches = timed_path(
+        f"FPMT GOP {W}x{H}, {N_FRAMES} frames", run, need=ALL_KERNELS,
+        expected=slice_launches)
+    require_group_launches("FPMT", groups)
+    shown, state = decode_payloads(payloads)
+    if len(shown) != N_FRAMES:
+        raise AssertionError(f"FPMT: decoded {len(shown)} frames")
+    n = require_slots_equal("FPMT", enc.slots, state)
+    t0 = time.perf_counter()
+    _, on_mesh = run(sharding.make_mesh(4, 1, device=dev))
+    secs = time.perf_counter() - t0
+    if on_mesh != payloads:
+        raise AssertionError("FPMT: the stream on make_mesh(4, 1) differs "
+                             "from the stream with mesh=None")
+    log(f"  decode: {len(shown)} frames; {n} slot planes equal the encoder "
+        f"recon; make_mesh(4, 1): the same {sum(map(len, payloads))} bytes "
+        f"({secs:.3f} s)")
+    return launches, payloads, shown
+
+
+def phase_cli(dev, tmp, frames, launches_fpmt, payloads, shown) -> dict:
+    """The clip as y4m (utils/y4m), encoded by apps.enc with --tpu --fp-mt
+    1 in this process and decoded by apps.dec: the stream is the FPMT
+    GOP's, its launches are too, and the y4m holds the frames the port's
+    decoder showed for it."""
+    from aom_av1_lavish_torch.apps import dec, enc
+    from aom_av1_lavish_torch.parallel import sharding
+    from aom_av1_lavish_torch.utils.y4m import read_y4m, write_y4m
+
+    src = os.path.join(tmp, "clip.y4m")
+    ivf = os.path.join(tmp, "cli.ivf")
+    out = os.path.join(tmp, "cli.y4m")
+    t0 = time.perf_counter()
+    write_y4m(src, frames, W, H)
+    t_write = time.perf_counter() - t0
+    groups = []
+
+    def run():
+        with launches_per_call(sharding, "fpmt_encode_group", groups):
+            rc = enc.main([src, "-o", ivf, "--tpu", "--fp-mt", "1",
+                           "--enable-cdef", "0", "--cq-level", str(QINDEX),
+                           "--gf-length", "8", "-q"])
+        if rc != 0:
+            raise AssertionError(f"apps.enc exited with {rc}")
+
+    _, secs, launches = timed_path(
+        f"CLI apps.enc --tpu --fp-mt 1 {W}x{H}, {N_FRAMES} frames", run,
+        need=ALL_KERNELS, expected=launches_fpmt)
+    require_group_launches("CLI", groups)
+    if read_payloads(ivf) != payloads:
+        raise AssertionError("CLI: the stream differs from the FPMT GOP's")
+    t0 = time.perf_counter()
+    if dec.main([ivf, "-o", out]) != 0:
+        raise AssertionError("apps.dec failed")
+    t_dec = time.perf_counter() - t0
+    got, w, h, _ = read_y4m(out)
+    if len(got) != N_FRAMES or (w, h) != (W, H):
+        raise AssertionError(f"CLI: {len(got)} frames of {w}x{h} decoded")
+    for g, s in zip(got, shown):
+        require_planes_equal("CLI decode", g, s[:3])
+    log(f"  y4m written in {t_write:.3f} s; the IVF equals the FPMT GOP's "
+        f"stream; apps.dec: {len(got)} frames in {t_dec:.3f} s, equal to "
+        "the port decoder's")
+    return launches
+
+
+def phase_sharded_lossless(dev, frames) -> dict:
+    """ShardedLosslessEncoder at 1920x1088 on make_mesh(2, 2) (two frames
+    a batch, two tile columns): the single-device LosslessEncoder's bytes
+    with tile_cols_log2=1, decoded to the source."""
+    from aom_av1_lavish_torch.encoder.encoder import (
+        LosslessEncoder, make_lossless_frame_header, make_sequence_header)
+    from aom_av1_lavish_torch.parallel.sharding import (
+        ShardedLosslessEncoder, make_mesh)
+
+    payloads, secs, launches = timed_path(
+        f"sharded lossless {W}x{H}, {len(frames)} frames, mesh (2, 2)",
+        lambda: ShardedLosslessEncoder(W, H, make_mesh(2, 2, device=dev))
+        .encode_frames(frames), expected={k: 0 for k in ALL_KERNELS})
+    sh = make_sequence_header(W, H)
+    for f, p in zip(frames, payloads):
+        e = LosslessEncoder(sh, make_lossless_frame_header(
+            sh, tile_cols_log2=1))
+        e.device = dev
+        if e.encode_frame(f) != p:
+            raise AssertionError("sharded lossless: differs from the "
+                                 "single-device encoder with 2 tiles")
+    shown, _ = decode_payloads(payloads)
+    if len(shown) != len(frames):
+        raise AssertionError(f"decoded {len(shown)} frames")
+    for f, d in zip(frames, shown):
+        require_planes_equal("sharded lossless", d[:3], f)
+    log(f"  equal to LosslessEncoder(tile_cols_log2=1); decoded to the "
+        f"source; {secs / len(frames):.3f} s per frame")
+    return {"sharded_lossless": launches}
+
+
+def timed_pair(dev, fn):
+    """fn(device) on the card and on the CPU -> (results, host seconds)."""
+    got, secs = [], []
+    for device in (dev, "cpu"):
+        t0 = time.perf_counter()
+        got.append(fn(device))
+        secs.append(time.perf_counter() - t0)
+    return got, secs
+
+
 def phase_card_vs_cpu(dev, tmp) -> None:
     """Every new path at 96x64 on the card and on the CPU: the same bytes
-    (the first-pass stats to 1e-5)."""
+    (the first-pass stats to 1e-5); then the 352x288 cpu_used 8 GOP."""
     import numpy as np
 
+    from aom_av1_lavish_torch.api import Encoder, EncoderConfig
     from aom_av1_lavish_torch.encoder import encode_lossless_ivf
     from aom_av1_lavish_torch.encoder.firstpass import first_pass
-    from aom_av1_lavish_torch.encoder.gop import (encode_gop_ivf,
+    from aom_av1_lavish_torch.encoder.gop import (GopEncoder, encode_gop_ivf,
                                                   encode_twopass_ivf)
     from aom_av1_lavish_torch.encoder.nonrd import encode_realtime_tpu_ivf
     from aom_av1_lavish_torch.encoder.tpu_inter import encode_tpu_lowdelay_ivf
     from aom_av1_lavish_torch.encoder.tpu_intra import encode_tpu_ivf
     from aom_av1_lavish_torch.encoder.tpu_rdo import encode_tpu_rdo_ivf
+    from aom_av1_lavish_torch.parallel.sharding import (
+        ShardedInterGopEncoder, make_mesh)
     from aom_av1_lavish_torch.utils.clips import make_frames
 
     w, h = 96, 64
@@ -1380,6 +1574,44 @@ def phase_card_vs_cpu(dev, tmp) -> None:
                                  f"({len(got[0])} bytes) differs from the "
                                  f"CPU's ({len(got[1])} bytes)")
         log(f"card vs CPU {w}x{h} {name}: {len(got[0])} bytes, equal")
+
+    def api(device, clip, **kw):
+        enc = Encoder(EncoderConfig(width=w, height=h, device=device, **kw))
+        for f in clip:
+            enc.encode(f)
+        return enc.flush()
+
+    # the port's parallel/sharding and api entry points -> payload lists
+    for name, fn in (
+            ("FPMT GOP", lambda d: GopEncoder(
+                w, h, device=d, **KW_FPMT).encode_sequence(frames)),
+            ("ShardedInterGopEncoder", lambda d: ShardedInterGopEncoder(
+                w, h, make_mesh(4, 1, device=d),
+                qindex=80).encode_frames(frames[:5])),
+            ("api.Encoder lossless", lambda d: api(d, frames[:2],
+                                                   lossless=True)),
+            ("api.Encoder GOP", lambda d: api(d, frames, **KW_DEFAULT))):
+        got, secs = timed_pair(dev, fn)
+        if got[0] != got[1] or not all(got[0]):
+            raise AssertionError(f"{name} at {w}x{h}: the card's payloads "
+                                 f"{[len(p) for p in got[0]]} differ from "
+                                 f"the CPU's {[len(p) for p in got[1]]}")
+        log(f"card vs CPU {w}x{h} {name}: {sum(map(len, got[0]))} bytes in "
+            f"{len(got[0])} TUs, equal (card {secs[0]:.3f} s, CPU "
+            f"{secs[1]:.3f} s)")
+    cif = make_frames(N_FRAMES, 352, 288)
+    got, secs = timed_pair(dev, lambda d: b"".join(GopEncoder(
+        352, 288, device=d, **KW_CPU8).encode_sequence(cif)))
+    if got[0] != got[1]:
+        at = next((i for i, (x, y) in enumerate(zip(*got)) if x != y),
+                  min(map(len, got)))
+        raise AssertionError(f"352x288 cpu_used 8: the card's stream "
+                             f"({len(got[0])} bytes) differs from the "
+                             f"CPU's ({len(got[1])} bytes), first at byte "
+                             f"{at}")
+    log(f"card vs CPU 352x288 cpu_used 8, {N_FRAMES} frames: "
+        f"{len(got[0])} bytes, equal (card {secs[0]:.3f} s, CPU "
+        f"{secs[1]:.3f} s)")
     a = np.stack([s.to_array() for s in first_pass(frames, device=dev)])
     b = np.stack([s.to_array() for s in first_pass(frames, device="cpu")])
     if not np.allclose(a, b, rtol=1e-5, atol=0):
@@ -1411,6 +1643,11 @@ def main() -> int:
     from aom_av1_lavish_torch.utils.clips import make_frames
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    def lap(what: str) -> None:
+        log(f"[{time.perf_counter() - t_start:.1f} s] {what} done")
+
     card = gpu_line()
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda "
         f"{torch.version.cuda}; card: {card}")
@@ -1427,23 +1664,36 @@ def main() -> int:
                 log("  " + line.strip())
 
     recs = phase_kernels(dev)
+    lap("kernel cases")
     phase_before_after(dev)
+    lap("before/after pairs")
     frames = make_frames(N_FRAMES, W, H)
     launches8 = phase_slice(dev, frames, "cpu_used 8", KW_CPU8)
     launches = phase_slice(dev, frames, "default", KW_DEFAULT)
+    lap("slices")
     if opts.warm:
         phase_warm(dev, frames, "cpu_used 8", KW_CPU8, opts.warm)
         phase_warm(dev, frames, "default", KW_DEFAULT, opts.warm)
+        phase_warm(dev, frames, "FPMT", KW_FPMT, opts.warm)
     if opts.profile:
         phase_profile(dev, frames, KW_DEFAULT)
     phase_decode(dev, make_frames(N_FRAMES, 352, 288), 352, 288,
                  "cpu_used 8", KW_CPU8)
     phase_decode(dev, make_frames(N_FRAMES, 768, 576), 768, 576, "default",
                  KW_DEFAULT)
+    lap("warm runs, profile and decode checks")
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     by_path = {}
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        by_path["fpmt"], fpmt_payloads, fpmt_shown = phase_fpmt(
+            dev, frames, launches)
+        lap("FPMT")
+        by_path["cli"] = phase_cli(dev, tmp, frames, by_path["fpmt"],
+                                   fpmt_payloads, fpmt_shown)
+        lap("CLI")
+        by_path.update(phase_sharded_lossless(dev, frames[:2]))
+        lap("sharded lossless")
         by_path.update(phase_rdo_key(dev, tmp))
         by_path.update(phase_lowdelay(dev, tmp, frames[:4]))
         by_path.update(phase_realtime(dev, tmp, frames[:4]))
@@ -1451,7 +1701,9 @@ def main() -> int:
         by_path.update(phase_lossless(dev, tmp, frames[:2]))
         by_path.update(phase_twopass(dev, tmp, frames))
         by_path.update(phase_intra_batch(dev, tmp, frames[:4]))
+        lap("the other device paths")
         phase_card_vs_cpu(dev, tmp)
+        lap("card against CPU")
 
     # launches: the default-configuration slice's (this script's main
     # path), K1's two entries apart; the cpu_used 8 slice's and each other

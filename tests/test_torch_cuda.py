@@ -410,3 +410,26 @@ def test_cuda_realtime_rows_come_back_through_pinned_memory(cuda_device):
     np.testing.assert_array_equal(a[1], b[1])
     for pa, pb in zip(a[2], b[2]):
         np.testing.assert_array_equal(pa, pb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", [False, True])
+def test_cuda_fpmt_gop_writes_the_stream_of_the_cpu_run(cuda_device, mesh):
+    """The frame-parallel GOP at 96x64 on the card (mesh=None, or a
+    make_mesh(4, 1) layout on the card): every kernel launches, and the
+    payloads equal the CPU run's."""
+    from aom_av1_lavish_torch.encoder.gop import GopEncoder
+    from aom_av1_lavish_torch.parallel.sharding import make_mesh
+    from aom_av1_lavish_torch.utils.clips import make_frames
+    frames = make_frames(8, 96, 64)
+    out = []
+    for device in (cuda_device, "cpu"):
+        K.reset_launches()
+        enc = GopEncoder(96, 64, device=device, frame_parallel=True,
+                         mesh=make_mesh(4, 1, device=device) if mesh
+                         else None, qindex=120, gf_length=8, use_tpu=True,
+                         enable_cdef=False)
+        out.append(enc.encode_sequence(frames))
+        launched = {k for k, v in K.LAUNCHES.items() if v > 0}
+        assert launched == (set(K.LAUNCHES) if device != "cpu" else set())
+    assert all(out[0]) and out[0] == out[1]

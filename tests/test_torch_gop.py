@@ -192,13 +192,15 @@ def test_port_runs_with_jax_blocked(runs, tmp_path):
 
 
 @pytest.mark.parametrize("kw,exc,what", [
-    (dict(cpu_used=None, frame_parallel=True), NotImplementedError,
-     "item 16"),
-    (dict(cpu_used=8, frame_parallel=True), NotImplementedError, "item 16"),
-    (dict(cpu_used=8, width=88), ValueError, "multiples of 16"),
-    (dict(cpu_used=None, height=56), ValueError, "multiples of 16"),
+    pytest.param(dict(cpu_used=8, width=88), ValueError, "multiples of 16",
+                 id="kw2-ValueError-multiples of 16"),
+    pytest.param(dict(cpu_used=None, height=56), ValueError,
+                 "multiples of 16", id="kw3-ValueError-multiples of 16"),
 ])
 def test_unported_configurations_raise(kw, exc, what):
+    """The device path refuses frames whose sides are no multiples of 16
+    (frame-parallel groups, which raised here, are ported: they construct
+    in test_ported_configurations_construct)."""
     args = dict(KW, **kw)
     w, h = args.pop("width", W), args.pop("height", H)
     with pytest.raises(exc, match=what):
@@ -208,16 +210,20 @@ def test_unported_configurations_raise(kw, exc, what):
 @pytest.mark.parametrize("kw", [dict(cpu_used=None), dict(cpu_used=7),
                                 dict(cpu_used=8, use_tpu=False),
                                 dict(cpu_used=None, use_tpu=False,
-                                     width=88, height=56)])
+                                     width=88, height=56),
+                                dict(cpu_used=None, frame_parallel=True),
+                                dict(cpu_used=8, frame_parallel=True)])
 def test_ported_configurations_construct(kw):
-    """TPL and the temporal filter are ported: the default configuration
-    (cpu_used unset, both on), the presets that turn them on, and the host
-    GOP path are built, and keep what the arguments and presets say."""
+    """TPL, the temporal filter and frame-parallel groups are ported: the
+    default configuration (cpu_used unset, both on), the presets that turn
+    them on, the host GOP path and FPMT are built, and keep what the
+    arguments and presets say."""
     args = dict(KW, **kw)
     w, h = args.pop("width", W), args.pop("height", H)
     enc = TorchGopEncoder(w, h, device="cpu", **args)
     assert enc.enable_tf == (kw["cpu_used"] != 8)
     assert enc.enable_tpl == (kw["cpu_used"] is None)
+    assert enc.frame_parallel == kw.get("frame_parallel", False)
     assert enc.device.type == "cpu"
 
 

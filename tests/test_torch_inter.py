@@ -112,3 +112,35 @@ def test_host_helpers_match_reference():
     for a, b in zip(IT.split_recon(rec, 16, 16),
                     IJ.split_recon(rec, 16, 16)):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("no_dropout", [False, True])
+@pytest.mark.parametrize("tx", [2, 3, 4])   # TX_16X16, TX_32X32, TX_64X64
+def test_rd_dropout_matches_jax(monkeypatch, tx, no_dropout):
+    """The RD tail dropout on the same seeded coefficients, the JAX
+    function called eagerly: equal levels and dequantized values, with
+    AVL_NO_DROPOUT unset (tails cut) and set (nothing dropped); both
+    functions read the variable at the call."""
+    from aom_av1_lavish_tpu.bitstream import constants as c
+    from aom_av1_lavish_tpu.bitstream import tables
+
+    if no_dropout:
+        monkeypatch.setenv("AVL_NO_DROPOUT", "1")
+    else:
+        monkeypatch.delenv("AVL_NO_DROPOUT", raising=False)
+    scan = np.asarray(tables.scan(tx, c.DCT_DCT))
+    rng = np.random.default_rng(tx)
+    n = scan.size
+    qc = (rng.integers(-3, 4, (64, n))
+          * (rng.random((64, n)) < 0.2)).astype(np.int32)
+    dqc = (qc * rng.integers(20, 90, (64, 1))).astype(np.int32)
+    lam = IT.rd_lambda(120)
+    ref = IJ._rd_dropout(jnp.asarray(qc), jnp.asarray(dqc), scan,
+                         np.argsort(scan), lam, tx)
+    st = torch.as_tensor(scan, dtype=torch.int64)
+    got = IT._rd_dropout(torch.from_numpy(qc), torch.from_numpy(dqc), st,
+                         torch.argsort(st), lam, tx)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    kept = int(np.count_nonzero(got[0].numpy()))
+    assert (kept == np.count_nonzero(qc)) == no_dropout
