@@ -74,7 +74,7 @@ def _align(planes, mvs, blk):
         win = gather_windows(pad, (y0 + mv[:, 0]).to(torch.int32),
                              (x0 + mv[:, 1]).to(torch.int32), blk, blk)
         out.append(_untile(win, Hb, Wb))
-    return torch.stack(out)
+    return torch.cat(out)
 
 
 def _blend(center, aligned, sigma2):

@@ -34,6 +34,10 @@
 //   * Eight lanes share a candidate (eight words each of a 16x16 block, two
 //     of an 8x8), so a warp sums four candidates at a time and a sum takes
 //     three shuffle steps.
+//   * The P frames of a frame-parallel GF group refine against the same
+//     reference plane, so a stack of source planes goes in one launch: the
+//     warps run over every frame's blocks, and a warp finds its frame's
+//     source plane by the frame stride.
 //
 // avl_gather_windows — the copy itself, for callers that need the pixels
 // (the temporal filter's aligned neighbours).  A CTA copies several windows
@@ -67,17 +71,19 @@ constexpr int WARPS = AT_THREADS / 32;
 constexpr int UROWS = 32;    // rows of the staged bounding box
 constexpr int UBYTES = 48;   // bytes per staged row (three 16-byte groups)
 
-// src: (>= nby*BSZ, src_w) uint8, block b at (b / nbx * BSZ, b % nbx * BSZ);
-// ref: (H, W) uint8; base_r/base_c: (B, C) window origins in ref;
-// out: (B, C) int32.  Eight lanes share a candidate, so a warp sums four
-// candidates at a time.
+// src: (frames, >= nby*BSZ, src_w) uint8 planes src_fstride bytes apart,
+// block b of frame f at (b / nbx * BSZ, b % nbx * BSZ) of plane f; ref:
+// (H, W) uint8, shared by every frame; base_r/base_c: (frames * B, C) window
+// origins in ref; out: (frames * B, C) int32.  Eight lanes share a
+// candidate, so a warp sums four candidates at a time.
 template <int BSZ>
 __global__ void __launch_bounds__(AT_THREADS)
 block_ssd_at_kernel(int32_t* __restrict__ out, const uint8_t* __restrict__ src,
                     const uint8_t* __restrict__ ref,
                     const int32_t* __restrict__ base_r,
                     const int32_t* __restrict__ base_c, int B, int C, int nbx,
-                    int src_w, int H, int W) {
+                    int src_w, int H, int W, int frames,
+                    long long src_fstride) {
   constexpr int WORDS = BSZ * BSZ / 4;            // 4-pixel words of a block
   constexpr int LPC = 8;                          // lanes per candidate
   constexpr int WPL = WORDS / LPC;                // words per lane
@@ -87,10 +93,12 @@ block_ssd_at_kernel(int32_t* __restrict__ out, const uint8_t* __restrict__ src,
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * WARPS + warp;
-  if (b >= B) return;                             // the whole warp leaves
-  const int by = b / nbx;
-  const int bx = b - by * nbx;
+  const int b = blockIdx.x * WARPS + warp;       // over frames * B
+  if (b >= frames * B) return;                    // the whole warp leaves
+  const int f = b / B;
+  const int by = (b - f * B) / nbx;
+  const int bx = b - f * B - by * nbx;
+  src += (size_t)f * src_fstride;
   const int sub = lane / LPC;                     // candidate slot of the lane
   const int l = lane - sub * LPC;
 
@@ -427,25 +435,29 @@ extern "C" int avl_gather_windows(void* out, const void* plane,
   return (int)cudaErrorInvalidValue;
 }
 
-// out (B, C) int32; src (>= nby*bsz rows, src_w columns) and ref (H, W)
-// uint8; base_r/base_c (B, C) int32; B = nby * nbx blocks of bsz 8 or 16.
+// out (frames * B, C) int32; src (frames planes of >= nby*bsz rows and src_w
+// columns, src_fstride bytes apart) and ref (H, W) uint8; base_r/base_c
+// (frames * B, C) int32; B = nby * nbx blocks of bsz 8 or 16 a frame.
 extern "C" int avl_block_ssd_at(void* out, const void* src, const void* ref,
                                 const void* base_r, const void* base_c, int B,
                                 int C, int nbx, int bsz, int src_w, int H,
-                                int W, void* stream) {
+                                int W, int frames, long long src_fstride,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((B + WARPS - 1) / WARPS);
+  if (frames < 1 || (long long)frames * B > INT_MAX - WARPS)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((frames * B + WARPS - 1) / WARPS);
   int32_t* o = static_cast<int32_t*>(out);
   const uint8_t* sp = static_cast<const uint8_t*>(src);
   const uint8_t* rp = static_cast<const uint8_t*>(ref);
   const int32_t* br = static_cast<const int32_t*>(base_r);
   const int32_t* bc = static_cast<const int32_t*>(base_c);
   if (bsz == 16) {
-    block_ssd_at_kernel<16><<<grid, AT_THREADS, 0, s>>>(o, sp, rp, br, bc, B, C,
-                                                    nbx, src_w, H, W);
+    block_ssd_at_kernel<16><<<grid, AT_THREADS, 0, s>>>(
+        o, sp, rp, br, bc, B, C, nbx, src_w, H, W, frames, src_fstride);
   } else if (bsz == 8) {
-    block_ssd_at_kernel<8><<<grid, AT_THREADS, 0, s>>>(o, sp, rp, br, bc, B, C,
-                                                   nbx, src_w, H, W);
+    block_ssd_at_kernel<8><<<grid, AT_THREADS, 0, s>>>(
+        o, sp, rp, br, bc, B, C, nbx, src_w, H, W, frames, src_fstride);
   } else {
     return (int)cudaErrorInvalidValue;
   }

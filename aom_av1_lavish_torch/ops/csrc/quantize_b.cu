@@ -10,6 +10,11 @@
 // nothing: one thread per coefficient, a grid-stride loop, bound by the
 // 12 bytes per coefficient it reads and writes.  The products wrap in
 // 32 bits exactly as the reference's int32 math does.
+//
+// The parameters are one row of n, or a row per frame of a batch whose
+// frames each have their own quantizer (the frame-parallel GF group):
+// coefficient i takes row i / per_row, where per_row is the coefficients of
+// one frame (the whole batch when there is one row).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -26,11 +31,12 @@ __global__ void quantize_b_kernel(int32_t* __restrict__ q,
                                   const int32_t* __restrict__ quant,
                                   const int32_t* __restrict__ qshift,
                                   const int32_t* __restrict__ deq,
-                                  long long total, int n, int log_scale) {
+                                  long long total, int n, int log_scale,
+                                  long long per_row) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < total; i += stride) {
-    const int p = (int)(i % n);
+    const long long p = i / per_row * n + i % n;
     const int32_t c = coeff[i];
     const int32_t ac = c < 0 ? (int32_t)(0u - (uint32_t)c) : c;
     const int32_t sign = c < 0 ? -1 : 1;
@@ -48,7 +54,10 @@ extern "C" int avl_quantize_b(void* q, void* dq, const void* coeff,
                               const void* zbin, const void* rnd,
                               const void* quant, const void* qshift,
                               const void* deq, long long total, int n,
-                              int log_scale, void* stream) {
+                              int log_scale, long long per_row,
+                              void* stream) {
+  if (n <= 0 || per_row <= 0 || per_row % n != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int threads = 256;
   long long blocks = (total + threads - 1) / threads;
@@ -59,6 +68,6 @@ extern "C" int avl_quantize_b(void* q, void* dq, const void* coeff,
       static_cast<const int32_t*>(coeff), static_cast<const int32_t*>(zbin),
       static_cast<const int32_t*>(rnd), static_cast<const int32_t*>(quant),
       static_cast<const int32_t*>(qshift), static_cast<const int32_t*>(deq),
-      total, n, log_scale);
+      total, n, log_scale, per_row);
   return (int)cudaGetLastError();
 }

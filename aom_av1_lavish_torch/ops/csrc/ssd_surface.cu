@@ -45,6 +45,10 @@
 //     multiply-add).  At the values the search feeds it an entry is at
 //     most 64 * 1020^2 = 66.6e6; larger inputs wrap modulo 2^32 exactly
 //     as the plain version's int32 sum does.
+//   * The P frames of a frame-parallel GF group search the same reference
+//     planes, so a stack of source planes goes in one launch: the grid's
+//     third axis is the frame, each CTA offsets its source by its frame's
+//     stride, and every frame's blocks read the one reference.
 //
 // avl_ssd_surface — the (src_blk, win) form the Pallas kernels took, for
 // callers that already hold windows (none on the encoder's path: TPL and
@@ -141,19 +145,22 @@ __device__ __forceinline__ void row_ssd(const int32_t* srow,
   }
 }
 
-// grid (ceil(nbx / GROUP), nby).  Block (by, bx) has its source at
-// (by*BSZ, bx*BSZ) of src and its window at (oy + by*BSZ, ox + bx*BSZ)
-// of ref, W = 2*radius + BSZ square.
+// grid (ceil(nbx / GROUP), nby, frames).  Block (by, bx) of frame f has
+// its source at (by*BSZ, bx*BSZ) of src's plane f (src_fstride elements
+// apart) and its window at (oy + by*BSZ, ox + bx*BSZ) of the one ref,
+// W = 2*radius + BSZ square; frame f's surfaces follow frame f-1's in out.
 template <typename T, int BSZ>
 __global__ void __launch_bounds__(THREADS)
 ssd_plane_kernel(float* __restrict__ out, const T* __restrict__ src,
                  const T* __restrict__ ref, int src_w, int ref_w, int nbx,
-                 int radius, int oy, int ox) {
+                 int radius, int oy, int ox, long long src_fstride) {
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const int W = 2 * radius + BSZ;
   const int S = 2 * radius + 1;
   const int bx0 = blockIdx.x * GROUP;
   const int by = blockIdx.y;
+  src += (size_t)blockIdx.z * src_fstride;
+  out += (size_t)blockIdx.z * gridDim.y * nbx * S * S;
   const int ng = min(GROUP, nbx - bx0);
   // shared layout, in elements of T: the window union (W rows of
   // win_stride), 16 elements of slack for the last run's over-read, then
@@ -206,7 +213,7 @@ ssd_plane_kernel(float* __restrict__ out, const T* __restrict__ src,
 template <typename T, int BSZ>
 int launch_plane(void* out, const void* src, const void* ref, int src_w,
                  int ref_w, int nby, int nbx, int radius, int oy, int ox,
-                 cudaStream_t s) {
+                 int frames, long long src_fstride, cudaStream_t s) {
   const int W = 2 * radius + BSZ;
   const int win_stride = (W + (GROUP - 1) * BSZ + 15) & ~15;
   const size_t smem =
@@ -217,36 +224,40 @@ int launch_plane(void* out, const void* src, const void* ref, int src_w,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid((nbx + GROUP - 1) / GROUP, nby);
+  dim3 grid((nbx + GROUP - 1) / GROUP, nby, frames);
   ssd_plane_kernel<T, BSZ><<<grid, THREADS, smem, s>>>(
       static_cast<float*>(out), static_cast<const T*>(src),
-      static_cast<const T*>(ref), src_w, ref_w, nbx, radius, oy, ox);
+      static_cast<const T*>(ref), src_w, ref_w, nbx, radius, oy, ox,
+      src_fstride);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// src: (nby*bsz, src_w >= nbx*bsz) plane; ref: (>= oy + (nby-1)*bsz + W,
-// ref_w >= ox + (nbx-1)*bsz + W) plane; both of elem_bytes 1 (uint8) or 4
-// (int32); out: (nby*nbx, S, S) f32.  bsz is 8 or 16.
+// src: (frames, >= nby*bsz, src_w >= nbx*bsz) planes, src_fstride elements
+// apart (one plane: frames 1); ref: (>= oy + (nby-1)*bsz + W, ref_w >= ox +
+// (nbx-1)*bsz + W) plane shared by every frame; both of elem_bytes 1
+// (uint8) or 4 (int32); out: (frames, nby*nbx, S, S) f32.  bsz is 8 or 16.
 extern "C" int avl_ssd_surface_plane(void* out, const void* src,
                                      const void* ref, int src_w, int ref_w,
                                      int nby, int nbx, int bsz, int radius,
                                      int oy, int ox, int elem_bytes,
+                                     int frames, long long src_fstride,
                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (frames < 1 || frames > 65535) return (int)cudaErrorInvalidValue;
   if (elem_bytes == 1 && bsz == 16)
     return launch_plane<uint8_t, 16>(out, src, ref, src_w, ref_w, nby, nbx,
-                                     radius, oy, ox, s);
+                                     radius, oy, ox, frames, src_fstride, s);
   if (elem_bytes == 1 && bsz == 8)
     return launch_plane<uint8_t, 8>(out, src, ref, src_w, ref_w, nby, nbx,
-                                    radius, oy, ox, s);
+                                    radius, oy, ox, frames, src_fstride, s);
   if (elem_bytes == 4 && bsz == 16)
     return launch_plane<int32_t, 16>(out, src, ref, src_w, ref_w, nby, nbx,
-                                     radius, oy, ox, s);
+                                     radius, oy, ox, frames, src_fstride, s);
   if (elem_bytes == 4 && bsz == 8)
     return launch_plane<int32_t, 8>(out, src, ref, src_w, ref_w, nby, nbx,
-                                    radius, oy, ox, s);
+                                    radius, oy, ox, frames, src_fstride, s);
   return (int)cudaErrorInvalidValue;
 }
 

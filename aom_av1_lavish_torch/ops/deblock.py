@@ -24,6 +24,12 @@ def _lim_tables(sharpness: int):
     return np.asarray(lim, np.int64), np.asarray(mblim, np.int64)
 
 
+@lru_cache(maxsize=None)
+def _lim_tables_on(sharpness: int, device: torch.device):
+    return tuple(torch.as_tensor(t, device=device)
+                 for t in _lim_tables(sharpness))
+
+
 def _filter4_core(p1, p0, q0, q1, mask, hev):
     """filter4 on int32 tensors centred at +-128 -> (op1, op0, oq0, oq1)."""
     def clamp(x):
@@ -132,48 +138,66 @@ def _filter6(P, Q, lim, mblim, thresh):
 
 def _edge_pass(plane, step, ntaps, nmod, filt, lim, mblim, thresh,
                horizontal, edge_mask=None):
-    """One direction's edge pass over an int32 plane (interior edges every
-    `step` pixels; ntaps read and nmod written on each side).  Edges where
-    edge_mask (rows, K) is False are left untouched."""
+    """One direction's edge pass over an int32 plane, or a (F, h, w) stack
+    of planes (interior edges every `step` pixels; ntaps read and nmod
+    written on each side).  Edges where edge_mask ([F,] rows, K) is False
+    are left untouched.  lim, mblim and thresh are ints, or (F, 1, 1)
+    tensors of each frame's."""
     if horizontal:
-        plane = plane.T
+        plane = plane.transpose(-1, -2)
     plane = plane.clone()
-    W = plane.shape[1]
+    W = plane.shape[-1]
     K = W // step - 1
     if K > 0:
         span = step * K
         # taps: p_i at column e*step - 1 - i, q_i at e*step + i (e = 1..K)
-        P = [plane[:, step - 1 - i:step - 1 - i + span:step]
+        P = [plane[..., step - 1 - i:step - 1 - i + span:step]
              for i in range(ntaps)]
-        Q = [plane[:, step + i:step + i + span:step] for i in range(ntaps)]
+        Q = [plane[..., step + i:step + i + span:step] for i in range(ntaps)]
         new_p, new_q = filt(P, Q, lim, mblim, thresh)
         for i in range(nmod):
             np_i, nq_i = new_p[i], new_q[i]
             if edge_mask is not None:
                 np_i = torch.where(edge_mask, np_i, P[i])
                 nq_i = torch.where(edge_mask, nq_i, Q[i])
-            plane[:, step - 1 - i:step - 1 - i + span:step] = np_i
-            plane[:, step + i:step + i + span:step] = nq_i
-    return plane.T if horizontal else plane
+            plane[..., step - 1 - i:step - 1 - i + span:step] = np_i
+            plane[..., step + i:step + i + span:step] = nq_i
+    return plane.transpose(-1, -2) if horizontal else plane
 
 
-def _plane_pass(plane_u8, lvl, sharpness, step, ntaps, nmod, filt,
-                von=None, hon=None):
+def _plane_pass(plane_u8, lvl, sharpness, step, ntaps, nmod, filt):
+    """One plane at one level (0 leaves it unfiltered), every edge."""
     p32 = plane_u8.to(torch.int32)
     lvl = int(lvl)
     if lvl <= 0:
         return plane_u8.clone()
     lim_tab, mblim_tab = _lim_tables(sharpness)
     lim, mblim, thresh = int(lim_tab[lvl]), int(mblim_tab[lvl]), lvl >> 4
-    vmask = hmask = None
-    if von is not None:
-        vmask = von.repeat_interleave(step, 0)           # (rows, K)
-        hmask = hon.T.repeat_interleave(step, 0)         # (cols, K)
     out = _edge_pass(p32, step, ntaps, nmod, filt, lim, mblim, thresh,
-                     horizontal=False, edge_mask=vmask)
+                     horizontal=False)
+    out = _edge_pass(out, step, ntaps, nmod, filt, lim, mblim, thresh,
+                     horizontal=True)
+    return out.clamp(0, 255).to(torch.uint8)
+
+
+def _frames_pass(planes_u8, lvl, sharpness, step, ntaps, nmod, filt, von,
+                 hon):
+    """(F, h, w) planes, frame f at level lvl[f] ((F,) int tensor) with its
+    edges on where von/hon (F, ...) say; a frame at level 0 keeps its plane
+    (a mask: the filter runs for every frame)."""
+    lim_tab, mblim_tab = _lim_tables_on(sharpness, planes_u8.device)
+    lvl = lvl.to(device=planes_u8.device, dtype=torch.int64).clamp_min(0)
+    lim = lim_tab[lvl].view(-1, 1, 1)
+    mblim = mblim_tab[lvl].view(-1, 1, 1)
+    thresh = (lvl >> 4).view(-1, 1, 1)
+    vmask = von.repeat_interleave(step, -2)                # (F, rows, K)
+    hmask = hon.transpose(-1, -2).repeat_interleave(step, -2)  # (F, cols, K)
+    out = _edge_pass(planes_u8.to(torch.int32), step, ntaps, nmod, filt, lim,
+                     mblim, thresh, horizontal=False, edge_mask=vmask)
     out = _edge_pass(out, step, ntaps, nmod, filt, lim, mblim, thresh,
                      horizontal=True, edge_mask=hmask)
-    return out.clamp(0, 255).to(torch.uint8)
+    return torch.where((lvl > 0).view(-1, 1, 1),
+                       out.clamp(0, 255).to(torch.uint8), planes_u8)
 
 
 def deblock_fixed16(rec_y, rec_u, rec_v, lvl_y, lvl_uv_u, lvl_uv_v,
@@ -191,12 +215,24 @@ def deblock_leafmask(rec_y, rec_u, rec_v, lvl_y, lvl_uv_u, lvl_uv_v,
     """Deblock planes of a variable-partition frame (leaves in {16, 32,
     64} squares, tx == block size).  leaf_id (nby, nbx): a 16-grid edge
     is filtered iff the leaf ids on its two sides differ; chroma edges on
-    the 8 grid map 1:1 onto them."""
-    von = leaf_id[:, 1:] != leaf_id[:, :-1]      # (nby, nbx-1)
-    hon = leaf_id[1:, :] != leaf_id[:-1, :]      # (nby-1, nbx)
-    y = _plane_pass(rec_y, lvl_y, sharpness, 16, 7, 6, _filter14, von, hon)
-    u = _plane_pass(rec_u, lvl_uv_u, sharpness, 8, 3, 2, _filter6, von,
-                    hon)
-    v = _plane_pass(rec_v, lvl_uv_v, sharpness, 8, 3, 2, _filter6, von,
-                    hon)
+    the 8 grid map 1:1 onto them.
+
+    A batch of frames (the reference's vmap over a GF group): (F, h, w)
+    planes, levels as (F,) int tensors (or sequences) and leaf_id
+    (F, nby, nbx), each frame at its own levels, a frame at level 0 left
+    unfiltered.  One frame's 2-D planes take int levels."""
+    if rec_y.dim() == 2:
+        dev = rec_y.device
+        out = deblock_leafmask(
+            rec_y[None], rec_u[None], rec_v[None],
+            *(torch.full((1,), int(lv), device=dev)
+              for lv in (lvl_y, lvl_uv_u, lvl_uv_v)),
+            leaf_id[None], sharpness)
+        return tuple(p[0] for p in out)
+    von = leaf_id[..., :, 1:] != leaf_id[..., :, :-1]    # (F, nby, nbx-1)
+    hon = leaf_id[..., 1:, :] != leaf_id[..., :-1, :]    # (F, nby-1, nbx)
+    lv = [torch.as_tensor(v) for v in (lvl_y, lvl_uv_u, lvl_uv_v)]
+    y = _frames_pass(rec_y, lv[0], sharpness, 16, 7, 6, _filter14, von, hon)
+    u = _frames_pass(rec_u, lv[1], sharpness, 8, 3, 2, _filter6, von, hon)
+    v = _frames_pass(rec_v, lv[2], sharpness, 8, 3, 2, _filter6, von, hon)
     return y, u, v

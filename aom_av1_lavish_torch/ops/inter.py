@@ -12,8 +12,12 @@ refine of the long-range candidate), half/quarter/eighth-pel refinement
 through the 8-tap interpolator (K3, which reads its regions from the
 plane), an MV consensus snap, a frame-level interp-filter
 pick, residual coding with RD tail dropout (K4), an RD skip decision and
-a bottom-up partition merge over {16, 32, 64}.  The chain runs the
-reference's lax.scan as a loop; each frame's deblocked recon stays on the
+a bottom-up partition merge over {16, 32, 64}.  The program takes a
+leading frame axis, as the reference vmaps _p_frame_core: the P frames of
+a frame-parallel GF group, each with its own quantizer, lambda and
+high-precision-MV flag, ride one pass against shared references, and each
+kernel launch covers all of them.  The chain runs the reference's lax.scan
+as a loop, one frame a step; each frame's deblocked recon stays on the
 device as the next frame's LAST.
 
 Float decisions (RD costs, the rate estimate, the frame filter pick)
@@ -67,8 +71,9 @@ def rd_lambda(qindex: int) -> np.float32:
 
 
 def split_recon(rec, H, W):
-    """Packed uint8 recon buffer (H + H//2, W) -> (y, u, v) planes."""
-    return rec[:H], rec[H:, :W // 2], rec[H:, W // 2:]
+    """Packed uint8 recon buffer (H + H//2, W), or a (F, H + H//2, W)
+    stack of them -> (y, u, v) planes."""
+    return rec[..., :H, :], rec[..., H:, :W // 2], rec[..., H:, W // 2:]
 
 
 class _Tables:
@@ -97,24 +102,45 @@ def _tx_n(tx):
     return min(c.TX_WIDTH[tx], 32) * min(c.TX_HEIGHT[tx], 32)
 
 
-def _mc_block(refp, x0, y0, bw, bh, mv_r_q4, mv_c_q4, filt):
+def _mc_block(refp, x0, y0, bw, bh, mv_r_q4, mv_c_q4, fsel=0):
     """Batched single-ref convolve for (bh, bw) blocks at plane coords
-    (x0, y0), clamped q4 MVs; refp is PADR-padded -> (B, bh, bw) uint8."""
+    (x0, y0), clamped q4 MVs; refp is PADR-padded -> (B, bh, bw) uint8.
+    fsel: the interp filter (FILT_BANKS index) of every block, or a (F,)
+    tensor of each frame's, whose blocks are consecutive in B."""
     pos_r = (y0 << 4) + mv_r_q4
     pos_c = (x0 << 4) + mv_c_q4
+    banks = _tables(refp.device).banks
+    if isinstance(fsel, int):
+        kx, ky = banks[fsel][pos_c & 15], banks[fsel][pos_r & 15]
+    else:
+        sel = _per_block(fsel, pos_r.shape[0] // fsel.shape[0])
+        kx, ky = banks[sel, pos_c & 15], banks[sel, pos_r & 15]
     return convolve_8tap_plane(
         refp, (PADR + (pos_r >> 4) - 3).to(torch.int32),
-        (PADR + (pos_c >> 4) - 3).to(torch.int32), filt[pos_c & 15],
-        filt[pos_r & 15], bh, bw)
+        (PADR + (pos_c >> 4) - 3).to(torch.int32), kx, ky, bh, bw)
 
 
-def _mc_refs(refs, x0, y0, n, cr, cc, ref, filt):
+def _mc_refs(refs, x0, y0, n, cr, cc, ref, fsel=0):
     """(n, n) predictions from each of 1 or 2 refs; block b takes
     ref[b]'s."""
-    preds = [_mc_block(rp, x0, y0, n, n, cr, cc, filt) for rp in refs]
+    preds = [_mc_block(rp, x0, y0, n, n, cr, cc, fsel) for rp in refs]
     if len(preds) == 1:
         return preds[0]
     return torch.where(ref[:, None, None] == 0, preds[0], preds[1])
+
+
+def _per_block(t, n: int):
+    """(F,) per-frame values -> (F*n,): each frame's value for each of its
+    n consecutive blocks."""
+    return t[:, None].expand(t.shape[0], n).reshape(-1)
+
+
+def _frame_sums(x, n_frames: int):
+    """Each frame's sum of x (its blocks consecutive on the first axis) ->
+    (n_frames,), each summed on its own as one frame's x would be, so a
+    frame's float32 sum does not depend on the batch around it."""
+    x = x.reshape(n_frames, -1)
+    return torch.stack([x[f].sum() for f in range(n_frames)])
 
 
 def _clamp_mv(mv_r, mv_c, bw, bh, ss_x, ss_y, x0l, y0l, fw, fh_, bw4l,
@@ -134,17 +160,18 @@ def _clamp_mv(mv_r, mv_c, bw, bh, ss_x, ss_y, x0l, y0l, fw, fh_, bw4l,
 
 
 def _tiles(p, n, n1, n2):
-    """(>= n1*n, >= n2*n) plane -> (n1*n2, n, n) int32 tiles."""
-    return p[:n1 * n, :n2 * n].reshape(n1, n, n2, n).permute(0, 2, 1, 3) \
-        .reshape(n1 * n2, n, n).to(torch.int32)
+    """(>= n1*n, >= n2*n) plane, or a (F, h, w) stack -> (F*n1*n2, n, n)
+    int32 tiles, frame by frame."""
+    return p[..., :n1 * n, :n2 * n].reshape(-1, n1, n, n2, n) \
+        .permute(0, 1, 3, 2, 4).reshape(-1, n, n).to(torch.int32)
 
 
 def _untile(blocks, n1, n2, Hf=None, Wf=None):
-    """(n1*n2, n, n) blocks -> (n1*n, n2*n) plane, zero-padded to
+    """(F*n1*n2, n, n) blocks -> (F, n1*n, n2*n) planes, zero-padded to
     (Hf, Wf) when given."""
     n = blocks.shape[-1]
-    pl = blocks.reshape(n1, n2, n, n).permute(0, 2, 1, 3) \
-        .reshape(n1 * n, n2 * n)
+    pl = blocks.reshape(-1, n1, n2, n, n).permute(0, 1, 3, 2, 4) \
+        .reshape(-1, n1 * n, n2 * n)
     if Hf is None:
         return pl
     return F.pad(pl, (0, Wf - n2 * n, 0, Hf - n1 * n))
@@ -177,22 +204,28 @@ def _pick(cands):
 
 
 def _half_res(plane):
-    """2x2 sums of a plane -> int32 plane of half the size."""
-    h2, w2 = plane.shape[0] // 2, plane.shape[1] // 2
-    return plane[:h2 * 2, :w2 * 2].to(torch.int32) \
-        .reshape(h2, 2, w2, 2).sum((1, 3)).to(torch.int32)
+    """2x2 sums of a plane (or of each of a stack) -> int32 plane of half
+    the size."""
+    h2, w2 = plane.shape[-2] // 2, plane.shape[-1] // 2
+    return plane[..., :h2 * 2, :w2 * 2].to(torch.int32) \
+        .reshape(*plane.shape[:-2], h2, 2, w2, 2).sum((-3, -1)) \
+        .to(torch.int32)
 
 
 def _fullpel_search(src_y, refp_y, refp_y2, y0, x0, nby, nbx, bsz=16):
     """Two-scale exhaustive full-pel search for one reference ->
     (best_dy, best_dx, cost) in full-pel units, range +-32.  src_y is the
-    uint8 source plane, whose (nby, nbx) grid of bsz blocks is searched."""
+    uint8 source plane, or a (F, H, W) stack of them, whose (nby, nbx)
+    grid of bsz blocks (origins y0, x0 (nby*nbx,)) is searched; the
+    results run over every frame's blocks in turn (F*nby*nbx,)."""
     r = FULLPEL_RADIUS
+    S = 2 * r + 1
     dev = src_y.device
+    lead = tuple(src_y.shape[:-2])
     # full-res surface: +-16
     ssd0 = ssd_surface_plane(src_y, refp_y, nby, nbx, bsz, r, PADR - r,
-                             PADR - r)
-    ar = torch.arange(2 * r + 1, device=dev) - r
+                             PADR - r).reshape(-1, S, S)
+    ar = torch.arange(S, device=dev) - r
     iy0, ix0, c0 = _argmin2d(ssd0 + _mv_bias(ar[None, :, None],
                                              ar[None, None, :]))
     dy0, dx0 = iy0 - r, ix0 - r
@@ -200,7 +233,7 @@ def _fullpel_search(src_y, refp_y, refp_y2, y0, x0, nby, nbx, bsz=16):
     # plane carries PADR//2 of padding)
     iy1, ix1, _ = _argmin2d(ssd_surface_plane(
         _half_res(src_y), refp_y2, nby, nbx, bsz // 2, r, PADR // 2 - r,
-        PADR // 2 - r))
+        PADR // 2 - r).reshape(-1, S, S))
     dy1, dx1 = (iy1 - r) * 2, (ix1 - r) * 2
     # refine the half-res candidate at full res (3x3): the nine SSDs come
     # from one fused K1 launch; the sums are exact integers below 2^24, so
@@ -208,10 +241,12 @@ def _fullpel_search(src_y, refp_y, refp_y2, y0, x0, nby, nbx, bsz=16):
     off = torch.tensor([-1, 0, 1], device=dev)
     ny = (dy1[:, None] + off.repeat_interleave(3)).clamp(-2 * r, 2 * r)
     nx = (dx1[:, None] + off.repeat(3)).clamp(-2 * r, 2 * r)
+    grid = lead + (nby * nbx, 9)
     ssd = block_ssd_at(src_y, refp_y,
-                       (PADR + y0[:, None] + ny).to(torch.int32),
-                       (PADR + x0[:, None] + nx).to(torch.int32), nby, nbx,
-                       bsz)
+                       (PADR + y0[:, None] + ny.reshape(grid))
+                       .to(torch.int32),
+                       (PADR + x0[:, None] + nx.reshape(grid))
+                       .to(torch.int32), nby, nbx, bsz).reshape(-1, 9)
     # candidate order decides ties: the full-res winner first, then the
     # neighbourhood row by row
     cost = torch.cat([c0[:, None],
@@ -223,16 +258,20 @@ def _fullpel_search(src_y, refp_y, refp_y2, y0, x0, nby, nbx, bsz=16):
 
 
 def _subpel_refine(sy_blk, refp_y, y0, x0, bsz, best_dy, best_dx, W, H,
-                   filt, hp):
-    """Half-pel 3x3, quarter-pel 3x3 and (when hp) an eighth-pel diamond
-    around the full-pel winner through the normative interpolator ->
-    (mv_r, mv_c, pred, cost) with 1/8-pel MVs."""
+                   take8):
+    """Half-pel 3x3, quarter-pel 3x3 and an eighth-pel diamond around the
+    full-pel winner through the normative interpolator (regular filter)
+    -> (mv_r, mv_c, pred, cost) with 1/8-pel MVs.  take8 says which blocks
+    take the diamond's pick (high-precision MVs are legal only in frames
+    that signal allow_high_precision_mv): None for none (the diamond is not
+    run), True for all, or a (B,) bool tensor, each block taking it by its
+    frame's flag as the reference's select does."""
     syf = sy_blk.to(torch.float32)
 
     def eval_mv(mv_r, mv_c):
         cr, cc = _clamp_mv(mv_r, mv_c, bsz, bsz, 0, 0, x0, y0, W, H, bsz,
                            bsz)
-        pred = _mc_block(refp_y, x0, y0, bsz, bsz, cr, cc, filt)
+        pred = _mc_block(refp_y, x0, y0, bsz, bsz, cr, cc)
         d = pred.to(torch.float32) - syf
         cost = (d * d).sum((1, 2)) + MV_COST_W / 8.0 * (
             mv_r.abs() + mv_c.abs()).to(torch.float32)
@@ -247,21 +286,28 @@ def _subpel_refine(sy_blk, refp_y, y0, x0, bsz, best_dy, best_dx, W, H,
                 cost, pred = eval_mv(mv_r + oy, mv_c + ox)
                 cands.append((cost, mv_r + oy, mv_c + ox, pred))
         best_cost, mv_r, mv_c, best_pred = _pick(cands)
-    if hp:
-        # eighth-pel diamond (only legal with allow_high_precision_mv)
+    if take8 is not None:
         cands = [(best_cost, mv_r, mv_c, best_pred)]
         for (oy, ox) in ((-1, 0), (1, 0), (0, -1), (0, 1)):
             cost, pred = eval_mv(mv_r + oy, mv_c + ox)
             cands.append((cost, mv_r + oy, mv_c + ox, pred))
-        best_cost, mv_r, mv_c, best_pred = _pick(cands)
+        picked = _pick(cands)
+        if take8 is True:
+            best_cost, mv_r, mv_c, best_pred = picked
+        else:
+            best_cost, mv_r, mv_c = (torch.where(take8, a, b) for a, b in
+                                     zip(picked[:3],
+                                         (best_cost, mv_r, mv_c)))
+            best_pred = torch.where(take8[:, None, None], picked[3],
+                                    best_pred)
     return mv_r, mv_c, best_pred, best_cost
 
 
 def _rd_dropout(qc, dqc, scan, inv_scan, lam, tx_size, rbits=1.0):
     """Trellis-lite tail dropout: cut the scan tail where the suffix sum
-    of (K*dq^2 - lam*bits) over dropped nonzeros is most negative.  With
-    AVL_NO_DROPOUT set in the environment (read at each call) nothing is
-    dropped."""
+    of (K*dq^2 - lam*bits) over dropped nonzeros is most negative (lam: a
+    scalar, or each block's (B,)).  With AVL_NO_DROPOUT set in the
+    environment (read at each call) nothing is dropped."""
     if os.environ.get("AVL_NO_DROPOUT"):
         return qc, dqc
     K = _TX_SSE_K.get(int(tx_size), 0.02)
@@ -278,6 +324,8 @@ def _rd_dropout(qc, dqc, scan, inv_scan, lam, tx_size, rbits=1.0):
     lvl_bits = 1.7 + 2.0 * log2_f32(qs.abs().to(torch.float32) + 1.0)
     save = torch.where(nz, rbits + lvl_bits + 0.55 * gap, 0.0)
     cost = torch.where(nz, K * ds * ds, 0.0)
+    if isinstance(lam, torch.Tensor) and lam.dim():
+        lam = lam[:, None]
     net = cost - lam * save
     suffix = net.flip(-1).cumsum(-1).flip(-1)
     best, at = suffix.min(-1, keepdim=True)
@@ -288,10 +336,13 @@ def _rd_dropout(qc, dqc, scan, inv_scan, lam, tx_size, rbits=1.0):
 
 def _code_residual(src, pred, tx, pq, lam, tabs):
     """Transform, quantize (K4), drop the tail and reconstruct one plane's
-    blocks -> (qcoeff, eob, recon, bits)."""
+    blocks, every frame's in turn, at each frame's quantizer pq (F, 5, 2)
+    and each block's lam (B,) -> (qcoeff, eob, recon, bits)."""
     resid = src - pred.to(torch.int32)
     coeff = fwd_txfm2d_batched(resid, tx, c.DCT_DCT)
-    q, dq = quantize(coeff, pq, CF._tx_scale(tx), tabs.dc[_tx_n(tx)])
+    q, dq = (t.reshape(coeff.shape) for t in quantize(
+        coeff.reshape(pq.shape[0], -1, coeff.shape[-1]), pq,
+        CF._tx_scale(tx), tabs.dc[_tx_n(tx)]))
     q, dq = _rd_dropout(q, dq, tabs.scan[tx], tabs.iscan[tx], lam, tx)
     bits, eob = est_bits(q, tabs.scan[tx])
     rec = inv_txfm2d_add_batched(dq, pred, tx, c.DCT_DCT)
@@ -302,8 +353,9 @@ def _code_residual(src, pred, tx, pq, lam, tabs):
 def _rd_skip(src_y, pred_y, coded, lam):
     """RD skip trial over one luma + two chroma residual codings: code
     only when the distortion removed beats the estimated bits.
-    coded: [(q, eob, rec, bits, src, pred)] for y, u, v.  Returns the
-    kept (q, eob, rec) per plane, the leaf distortion and rate."""
+    coded: [(q, eob, rec, bits, src, pred)] for y, u, v; lam (B,) each
+    block's.  Returns the kept (q, eob, rec) per plane, the leaf
+    distortion and rate."""
     (_, _, rec_y, _, _, _), (_, _, rec_u, _, src_u, pred_u), \
         (_, _, rec_v, _, src_v, pred_v) = coded
     d_code = _ssd_sum(rec_y, src_y) + _ssd_sum(rec_u, src_u) \
@@ -321,19 +373,20 @@ def _rd_skip(src_y, pred_y, coded, lam):
 
 def _eval_merge_level(src_y, src_u, src_v, y0m, x0m, cand_r, cand_c,
                       cand_ref, bsz, refs_y, refs_u, refs_v, W, H, pq_y,
-                      pq_u, pq_v, lam, tx_y, tx_uv, filt, tabs):
+                      pq_u, pq_v, lam, tx_y, tx_uv, fsel, tabs):
     """RD-code one merged partition level (bsz in {32, 64}) for all its
-    blocks: pick the best MV among the children's candidates, motion
-    compensate at bsz, transform-code luma at tx_y and chroma at tx_uv,
-    and apply the RD skip trial.  Returns (hdr (Bm, 6), qy, qu, qv
-    (raster), rec_y, rec_u, rec_v, d_total, r_total)."""
+    blocks, every frame's in turn: pick the best MV among the children's
+    candidates, motion compensate at bsz under each frame's filter fsel,
+    transform-code luma at tx_y and chroma at tx_uv, and apply the RD skip
+    trial.  Returns (hdr (Bm, 6), qy, qu, qv (raster), rec_y, rec_u, rec_v,
+    d_total, r_total)."""
     csz = bsz >> 1
     syf = src_y.to(torch.float32)
     best = None
     for k in range(cand_r.shape[1]):
         cr, cc = _clamp_mv(cand_r[:, k], cand_c[:, k], bsz, bsz, 0, 0, x0m,
                            y0m, W, H, bsz, bsz)
-        pk = _mc_refs(refs_y, x0m, y0m, bsz, cr, cc, cand_ref[:, k], filt)
+        pk = _mc_refs(refs_y, x0m, y0m, bsz, cr, cc, cand_ref[:, k], fsel)
         d = pk.to(torch.float32) - syf
         ck = (d * d).sum((1, 2)) + (MV_COST_W / 8.0) * (
             cand_r[:, k].abs() + cand_c[:, k].abs()).to(torch.float32)
@@ -355,7 +408,7 @@ def _eval_merge_level(src_y, src_u, src_v, y0m, x0m, cand_r, cand_c,
     for src_p, refs_p, pq_p in ((src_u, refs_u, pq_u),
                                 (src_v, refs_v, pq_v)):
         pred = _mc_refs(refs_p, x0m >> 1, y0m >> 1, csz, crc, ccc, ref,
-                        filt)
+                        fsel)
         coded.append(_code_residual(src_p, pred, tx_uv, pq_p, lam, tabs)
                      + (src_p, pred))
     out, d_tot, r_tot = _rd_skip(src_y, pred_y, coded, lam)
@@ -373,9 +426,9 @@ def _rows(hdr, qy, qu, qv):
 
 
 def _qgrid(a, n1, n2):
-    """(>= 2*n1, >= 2*n2) grid -> (n1*n2, 4) 2x2 child groups."""
-    return a[:2 * n1, :2 * n2].reshape(n1, 2, n2, 2).permute(0, 2, 1, 3) \
-        .reshape(n1 * n2, 4)
+    """(F, >= 2*n1, >= 2*n2) grids -> (F*n1*n2, 4) 2x2 child groups."""
+    return a[..., :2 * n1, :2 * n2].reshape(-1, n1, 2, n2, 2) \
+        .permute(0, 1, 3, 2, 4).reshape(-1, 4)
 
 
 def _merge_candidates(mvr, mvc, ref, n1, n2, n_refs):
@@ -395,121 +448,146 @@ def _merge_candidates(mvr, mvc, ref, n1, n2, n_refs):
 
 def p_frame(src_y, src_u, src_v, refs_y, refs_u, refs_v, refs_y2, pq_y,
             pq_u, pq_v, lam, hp, interp=True, merge=True):
-    """Whole-frame P encode with the {16, 32, 64} merge DP (merge=False:
-    fixed 16x16 blocks, r32 and r64 stay empty and lvl zero).
+    """Whole-frame P encode of a batch of F frames against shared
+    references (the reference's vmap of _p_frame_core over a frame axis:
+    every kernel launch covers all F frames), with the {16, 32, 64} merge
+    DP (merge=False: fixed 16x16 blocks, r32 and r64 stay empty and lvl
+    zero).
 
-    src_*: uint8 planes (H, W multiples of 16); refs_*: lists of 1 or 2
-    PADR-padded reference planes (refs_y2 the half-res luma sums); pq_*:
-    (5, 2) int32 quantizer tensors; lam: float32 0-d tensor; hp: the
-    frame's allow_high_precision_mv; interp: pick the frame's interp
-    filter.  Returns a dict of device tensors: r16 (B, 390), r32
-    (B32, 1542), r64 (B64, 3078) int16 rows in the emitters' raster
-    layout, lvl (nby, nbx) uint8, rec (H + H//2, W) uint8, fsel."""
+    src_*: (F, H, W) uint8 planes (H, W multiples of 16); refs_*: lists of
+    1 or 2 PADR-padded reference planes (refs_y2 the half-res luma sums);
+    pq_*: (F, 5, 2) int32 quantizer tensors; lam: (F,) float32 tensor; hp:
+    F ints, each frame's allow_high_precision_mv; interp: pick each frame's
+    interp filter.  Returns a dict of device tensors, each with the frame
+    axis first: r16 (F, B, 390), r32 (F, B32, 1542), r64 (F, B64, 3078)
+    int16 rows in the emitters' raster layout, lvl (F, nby, nbx) uint8,
+    rec (F, H + H//2, W) uint8, fsel (F,) int64.
+
+    One frame's 2-D planes with (5, 2) pq, a 0-d lam and an int hp give
+    the same results without the frame axis.
+
+    Every decision a frame makes reads only that frame's blocks and
+    parameters, and each float sum over a frame is taken on its own, so a
+    frame's results do not depend on the batch it rides in."""
+    if src_y.dim() == 2:
+        out = p_frame(src_y[None], src_u[None], src_v[None], refs_y, refs_u,
+                      refs_v, refs_y2, pq_y[None], pq_u[None], pq_v[None],
+                      lam.reshape(1), [hp], interp, merge)
+        return {k: v[0] for k, v in out.items()}
     dev = src_y.device
     tabs = _tables(dev)
-    H, W = src_y.shape
+    nf, H, W = src_y.shape
     n_refs = len(refs_y)
     nby, nbx = H // 16, W // 16
     B = nby * nbx
+    N = nf * B                       # every frame's blocks, frame by frame
     by, bx = torch.meshgrid(torch.arange(nby, device=dev),
                             torch.arange(nbx, device=dev), indexing="ij")
-    y0 = by.reshape(-1) * 16
-    x0 = bx.reshape(-1) * 16
-    filt8 = tabs.banks[0]
+    y0f = by.reshape(-1) * 16        # one frame's block origins
+    x0f = bx.reshape(-1) * 16
+    y0, x0 = y0f.repeat(nf), x0f.repeat(nf)
+    lam_b = _per_block(lam, B)
+    hp = [int(h) for h in hp]
+    # the eighth-pel diamond runs when any frame may use it, and each
+    # frame's blocks take it by that frame's flag
+    take8 = (True if all(hp) else None if not any(hp) else _per_block(
+        torch.tensor(hp, dtype=torch.bool).to(dev, non_blocking=True), B))
     sy_blk = _tiles(src_y, 16, nby, nbx)
     syf32 = sy_blk.to(torch.float32)
 
     # --- per-ref search ---
     per_ref = []
     for ri in range(n_refs):
-        fdy, fdx, _ = _fullpel_search(src_y, refs_y[ri], refs_y2[ri], y0,
-                                      x0, nby, nbx)
+        fdy, fdx, _ = _fullpel_search(src_y, refs_y[ri], refs_y2[ri], y0f,
+                                      x0f, nby, nbx)
         mv_r, mv_c, pred, _ = _subpel_refine(sy_blk, refs_y[ri], y0, x0,
-                                             16, fdy, fdx, W, H, filt8, hp)
+                                             16, fdy, fdx, W, H, take8)
         per_ref.append((_ssd_sum(pred, sy_blk), mv_r, mv_c, pred))
     # the reference's snap threshold below reads the cost of the LAST
     # searched ref (its loop variable), not the chosen one
     cost = per_ref[-1][0]
     if n_refs == 1:
-        best_ref = torch.zeros(B, dtype=torch.int64, device=dev)
+        best_ref = torch.zeros(N, dtype=torch.int64, device=dev)
         _, mv_r, mv_c, pred_y = per_ref[0]
     else:
         best_ref = torch.stack([t[0] for t in per_ref], 1).argmin(1)
-        arB = torch.arange(B, device=dev)
-        mv_r = torch.stack([t[1] for t in per_ref], 1)[arB, best_ref]
-        mv_c = torch.stack([t[2] for t in per_ref], 1)[arB, best_ref]
+        arN = torch.arange(N, device=dev)
+        mv_r = torch.stack([t[1] for t in per_ref], 1)[arN, best_ref]
+        mv_c = torch.stack([t[2] for t in per_ref], 1)[arN, best_ref]
         pred_y = torch.where(best_ref[:, None, None] == 0, per_ref[0][3],
                              per_ref[1][3])
 
-    def mc16(cand_r, cand_c, cand_ref, filt=filt8):
+    def mc16(cand_r, cand_c, cand_ref, fsel=0):
         cr, cc = _clamp_mv(cand_r, cand_c, 16, 16, 0, 0, x0, y0, W, H, 16,
                            16)
-        return _mc_refs(refs_y, x0, y0, 16, cr, cc, cand_ref, filt)
+        return _mc_refs(refs_y, x0, y0, 16, cr, cc, cand_ref, fsel)
 
     # --- (MV, ref) consensus snap: left/top neighbours, each ref's
     # median MV, and zero MV on LAST ---
     snap = []
     for shift in ("left", "top"):
         cand = []
-        for g in (mv_r.reshape(nby, nbx), mv_c.reshape(nby, nbx),
-                  best_ref.reshape(nby, nbx)):
+        for g in (mv_r.reshape(nf, nby, nbx), mv_c.reshape(nf, nby, nbx),
+                  best_ref.reshape(nf, nby, nbx)):
             if shift == "left":
-                g = torch.cat([g[:, :1], g[:, :-1]], 1)
+                g = torch.cat([g[..., :1], g[..., :-1]], -1)
             else:
-                g = torch.cat([g[:1], g[:-1]], 0)
-            cand.append(g.reshape(B))
+                g = torch.cat([g[:, :1], g[:, :-1]], 1)
+            cand.append(g.reshape(N))
         pc = mc16(*cand)
         snap.append((_ssd_sum(pc, syf32), *cand, pc))
 
     def masked_median(vals, mask):
-        srt = torch.where(mask, vals, _INT32_MAX).sort().values
-        cnt = mask.sum()
-        v = srt.gather(0, (cnt // 2).clamp(0, B - 1).reshape(1))[0]
-        return torch.where(cnt > 0, v, 0)
+        """Each frame's lower median of vals where mask, for its blocks."""
+        srt = torch.where(mask, vals, _INT32_MAX).reshape(nf, B) \
+            .sort(-1).values
+        cnt = mask.reshape(nf, B).sum(-1)
+        v = srt.gather(1, (cnt // 2).clamp(0, B - 1)[:, None])[:, 0]
+        return _per_block(torch.where(cnt > 0, v, 0), B)
 
     for ri in range(n_refs):
         msk = best_ref == ri
-        mr = masked_median(mv_r, msk).expand(B)
-        mc = masked_median(mv_c, msk).expand(B)
-        rr = torch.full((B,), ri, dtype=best_ref.dtype, device=dev)
+        mr = masked_median(mv_r, msk)
+        mc = masked_median(mv_c, msk)
+        rr = torch.full((N,), ri, dtype=best_ref.dtype, device=dev)
         pm = mc16(mr, mc, rr)
         snap.append((_ssd_sum(pm, syf32), mr, mc, rr, pm))
-    pz = stride_windows(refs_y[0], PADR, PADR, nby, nbx, 16, 16)
-    zero = torch.zeros(B, dtype=torch.int64, device=dev)
+    pz = stride_windows(refs_y[0], PADR, PADR, nby, nbx, 16, 16) \
+        .expand(nf, B, 16, 16).reshape(N, 16, 16)
+    zero = torch.zeros(N, dtype=torch.int64, device=dev)
     snap.append((_ssd_sum(pz, syf32), zero, zero, zero, pz))
     best_c, snap_r, snap_c, snap_f, snap_p = _pick(snap)
     # ~rate premium of NEWMV over NEAREST/GLOBAL at working q
-    adopt = best_c <= cost + lam * 14.0
+    adopt = best_c <= cost + lam_b * 14.0
     mv_r = torch.where(adopt, snap_r, mv_r)
     mv_c = torch.where(adopt, snap_c, mv_c)
     best_ref = torch.where(adopt, snap_f, best_ref)
     pred_y = torch.where(adopt[:, None, None], snap_p, pred_y)
 
     # --- frame-level switchable-filter decision: the final MVs
-    # re-predict under each bank and the frame takes the min-SSD one ---
-    fbank = filt8
-    fsel = torch.zeros((), dtype=torch.int64, device=dev)
+    # re-predict under each bank and each frame takes its min-SSD one ---
+    fsel = 0
+    fsel_out = torch.zeros(nf, dtype=torch.int64, device=dev)
     if interp:
-        preds_f = [mc16(mv_r, mv_c, best_ref, tabs.banks[i])
-                   for i in range(3)]
-        ssd_f = torch.stack([((pf.to(torch.float32) - syf32) ** 2).sum()
-                             for pf in preds_f])
-        fsel = ssd_f.argmin()
-        fbank = tabs.banks.index_select(0, fsel.reshape(1))[0]
-        pred_y = torch.stack(preds_f).index_select(0, fsel.reshape(1))[0]
+        preds_f = [mc16(mv_r, mv_c, best_ref, i) for i in range(3)]
+        ssd_f = torch.stack([_frame_sums(
+            (pf.to(torch.float32) - syf32) ** 2, nf) for pf in preds_f], 1)
+        fsel = fsel_out = ssd_f.argmin(1)                         # (F,)
+        pred_y = torch.stack(preds_f)[_per_block(fsel, B),
+                                      torch.arange(N, device=dev)]
 
     # --- final residual coding + RD skip ---
-    coded = [_code_residual(sy_blk, pred_y, c.TX_16X16, pq_y, lam, tabs)
+    coded = [_code_residual(sy_blk, pred_y, c.TX_16X16, pq_y, lam_b, tabs)
              + (sy_blk, pred_y)]
     crc, ccc = _clamp_mv(mv_r, mv_c, 8, 8, 1, 1, x0, y0, W, H, 16, 16)
     for src_p, refs_p, pq_p in ((src_u, refs_u, pq_u),
                                 (src_v, refs_v, pq_v)):
         sc_blk = _tiles(src_p, 8, nby, nbx)
         pred = _mc_refs(refs_p, x0 >> 1, y0 >> 1, 8, crc, ccc, best_ref,
-                        fbank)
-        coded.append(_code_residual(sc_blk, pred, c.TX_8X8, pq_p, lam,
+                        fsel)
+        coded.append(_code_residual(sc_blk, pred, c.TX_8X8, pq_p, lam_b,
                                     tabs) + (sc_blk, pred))
-    out16, d16f, r16f = _rd_skip(sy_blk, pred_y, coded, lam)
+    out16, d16f, r16f = _rd_skip(sy_blk, pred_y, coded, lam_b)
     (qy, eob_y, rec_y), (qu, eob_u, rec_u), (qv, eob_v, rec_v) = out16
     r16 = _rows(torch.stack([mv_r, mv_c, best_ref, eob_y, eob_u, eob_v],
                             1), qy, qu, qv)
@@ -517,60 +595,61 @@ def p_frame(src_y, src_u, src_v, refs_y, refs_u, refs_v, refs_y2, pq_y,
     # --- bottom-up partition merge DP over {16, 32, 64} squares ---
     nby2, nbx2 = nby // 2, nbx // 2
     nby4, nbx4 = nby2 // 2, nbx2 // 2
-    lvl16 = torch.zeros((nby, nbx), dtype=torch.uint8, device=dev)
+    lvl16 = torch.zeros((nf, nby, nbx), dtype=torch.uint8, device=dev)
     rec_y_full = _untile(rec_y, nby, nbx)
     rec_u_full = _untile(rec_u, nby, nbx)
     rec_v_full = _untile(rec_v, nby, nbx)
-    r32 = torch.zeros((0, 1542), dtype=torch.int16, device=dev)
-    r64 = torch.zeros((0, 3078), dtype=torch.int16, device=dev)
+    r32 = torch.zeros((nf, 0, 1542), dtype=torch.int16, device=dev)
+    r64 = torch.zeros((nf, 0, 3078), dtype=torch.int16, device=dev)
     levels = []
     if merge and nby2 > 0 and nbx2 > 0:
         levels.append((32, 1, nby2, nbx2, c.TX_32X32, c.TX_16X16, OH32))
         if nby4 > 0 and nbx4 > 0:
             levels.append((64, 2, nby4, nbx4, c.TX_64X64, c.TX_32X32,
                            OH64))
-    child = (mv_r.reshape(nby, nbx), mv_c.reshape(nby, nbx),
-             best_ref.reshape(nby, nbx),
-             (d16f + lam * (r16f + OH16)).reshape(nby, nbx))
+    child = (mv_r.reshape(nf, nby, nbx), mv_c.reshape(nf, nby, nbx),
+             best_ref.reshape(nf, nby, nbx),
+             (d16f + lam_b * (r16f + OH16)).reshape(nf, nby, nbx))
     for (bsz, lv, n1, n2, tx_y, tx_uv, oh) in levels:
         cand = _merge_candidates(*child[:3], n1, n2, n_refs)
         g1, g2 = torch.meshgrid(torch.arange(n1, device=dev),
                                 torch.arange(n2, device=dev),
                                 indexing="ij")
-        y0m = g1.reshape(-1) * bsz
-        x0m = g2.reshape(-1) * bsz
+        y0m = (g1.reshape(-1) * bsz).repeat(nf)
+        x0m = (g2.reshape(-1) * bsz).repeat(nf)
+        lam_m = _per_block(lam, n1 * n2)
         (hdr, qly, qlu, qlv, rly, rlu, rlv, dm, rm) = _eval_merge_level(
             _tiles(src_y, bsz, n1, n2), _tiles(src_u, bsz // 2, n1, n2),
             _tiles(src_v, bsz // 2, n1, n2), y0m, x0m, *cand, bsz,
-            refs_y, refs_u, refs_v, W, H, pq_y, pq_u, pq_v, lam, tx_y,
-            tx_uv, fbank, tabs)
-        split = _qgrid(child[3], n1, n2).sum(1) + lam * R_SPLIT
-        cost_n = dm + lam * (rm + oh)
+            refs_y, refs_u, refs_v, W, H, pq_y, pq_u, pq_v, lam_m, tx_y,
+            tx_uv, fsel, tabs)
+        split = _qgrid(child[3], n1, n2).sum(1) + lam_m * R_SPLIT
+        cost_n = dm + lam_m * (rm + oh)
         part = cost_n < split
-        rows = _rows(hdr, qly, qlu, qlv)
+        rows = _rows(hdr, qly, qlu, qlv).reshape(nf, n1 * n2, -1)
         if bsz == 32:
             r32 = rows
         else:
             r64 = rows
         f = bsz // 16
-        m = part.reshape(n1, n2).repeat_interleave(f, 0) \
-            .repeat_interleave(f, 1)
-        lvl16[:n1 * f, :n2 * f] = torch.where(
-            m, lv, lvl16[:n1 * f, :n2 * f])
-        ml = (lvl16 == lv).repeat_interleave(16, 0).repeat_interleave(16, 1)
-        mc2 = (lvl16 == lv).repeat_interleave(8, 0).repeat_interleave(8, 1)
+        m = part.reshape(nf, n1, n2).repeat_interleave(f, 1) \
+            .repeat_interleave(f, 2)
+        lvl16[:, :n1 * f, :n2 * f] = torch.where(
+            m, lv, lvl16[:, :n1 * f, :n2 * f])
+        ml = (lvl16 == lv).repeat_interleave(16, 1).repeat_interleave(16, 2)
+        mc2 = (lvl16 == lv).repeat_interleave(8, 1).repeat_interleave(8, 2)
         rec_y_full = torch.where(ml, _untile(rly, n1, n2, H, W), rec_y_full)
         rec_u_full = torch.where(mc2, _untile(rlu, n1, n2, H // 2, W // 2),
                                  rec_u_full)
         rec_v_full = torch.where(mc2, _untile(rlv, n1, n2, H // 2, W // 2),
                                  rec_v_full)
-        child = (hdr[:, 0].reshape(n1, n2), hdr[:, 1].reshape(n1, n2),
-                 hdr[:, 2].reshape(n1, n2),
-                 torch.minimum(cost_n, split).reshape(n1, n2))
-    rec = torch.cat([rec_y_full, torch.cat([rec_u_full, rec_v_full], 1)],
-                    0).to(torch.uint8)
-    return dict(r16=r16, r32=r32, r64=r64, lvl=lvl16,
-                rec=rec, fsel=fsel)
+        child = (hdr[:, 0].reshape(nf, n1, n2), hdr[:, 1].reshape(nf, n1, n2),
+                 hdr[:, 2].reshape(nf, n1, n2),
+                 torch.minimum(cost_n, split).reshape(nf, n1, n2))
+    rec = torch.cat([rec_y_full, torch.cat([rec_u_full, rec_v_full], -1)],
+                    -2).to(torch.uint8)
+    return dict(r16=r16.reshape(nf, B, -1), r32=r32, r64=r64, lvl=lvl16,
+                rec=rec, fsel=fsel_out)
 
 
 def _edge_pad(p, n):
@@ -604,8 +683,9 @@ def pad_ref(y, u, v):
 
 
 def _leaf_ids(lvl16):
-    """Per-16-block coding-leaf id from the partition level map."""
-    nby, nbx = lvl16.shape
+    """Per-16-block coding-leaf id from the partition level map (or from
+    each of a (F, nby, nbx) stack of them)."""
+    nby, nbx = lvl16.shape[-2:]
     dev = lvl16.device
     rr = torch.arange(nby, device=dev)[:, None]
     cc = torch.arange(nbx, device=dev)[None, :]
@@ -623,56 +703,61 @@ def to_device(plane, device):
     return torch.as_tensor(np.ascontiguousarray(plane), device=device)
 
 
-def to_device_state(planes_list, qindexes, device):
-    """Upload a group's per-frame state once: each (y, u, v) of
-    planes_list (numpy, or tensors already on the device) as uint8
-    tensors, and per frame qindex its quantizer arrays (three (5, 2)
-    int32 tensors), RD lambda (float32 0-d tensor) and high-precision-MV
-    flag."""
-    def up(a):
-        return to_device(a, device)
-    planes = [tuple(up(p) for p in f) for f in planes_list]
-    per_q = []
-    for q in qindexes:
-        pq = up(pq_array(Q.build_plane_quant(q, 0, 0)))
-        per_q.append(dict(pq=(pq, pq, pq),
-                          lam=torch.tensor(rd_lambda(q), device=device),
-                          hp=1 if q < 128 else 0))
-    return planes, per_q
+def quant_state(qindexes, device):
+    """A group's quantizer state on `device`, a frame of it per qindex:
+    its quantizer arrays (three (F, 5, 2) int32 tensors, one per plane),
+    RD lambdas ((F,) float32) and high-precision-MV flags (F ints)."""
+    pq = torch.as_tensor(np.stack(
+        [pq_array(Q.build_plane_quant(q, 0, 0)) for q in qindexes]),
+        device=device)
+    return dict(pq=(pq, pq, pq),
+                lam=torch.as_tensor(np.asarray(
+                    [rd_lambda(q) for q in qindexes], np.float32),
+                    device=device),
+                hp=[1 if q < 128 else 0 for q in qindexes])
+
+
+def quant_frames(q, sl: slice):
+    """The frames `sl` of a quant_state."""
+    return dict(pq=tuple(p[sl] for p in q["pq"]), lam=q["lam"][sl],
+                hp=q["hp"][sl])
 
 
 def upload_group(src_frames, ref_frames, qindexes, device):
     """A group's sources and reference frames cropped to the sources'
     16-aligned size and uploaded once (numpy planes, or tensors already on
-    `device`), with each frame's quantizer state -> (sources, references,
-    per-frame quantizer dicts)."""
+    `device`), with the group's quantizer state -> (sources as three
+    (L, h, w) uint8 stacks, references as (y, u, v) tensors each,
+    quant_state of qindexes)."""
     H, W = src_frames[0][0].shape[:2]
     assert H % 16 == 0 and W % 16 == 0
-    planes, per_q = to_device_state(
-        [_crop(f, H, W) for f in (*src_frames, *ref_frames)], qindexes,
-        device)
+    planes = [tuple(to_device(p, device) for p in _crop(f, H, W))
+              for f in (*src_frames, *ref_frames)]
     L = len(src_frames)
-    return planes[:L], planes[L:], per_q
+    srcs = tuple(torch.stack(p) for p in zip(*planes[:L]))
+    return srcs, planes[L:], quant_state(qindexes, device)
 
 
-def deblock_levels(lf_levels, L):
+def deblock_levels(lf_levels, L, device):
     """Per-frame (y, u, v) deblock levels from an int or a triple per
-    frame (None = all 0, unfiltered)."""
+    frame (None = all 0, unfiltered) -> (L, 3) int64 tensor on device."""
     if lf_levels is None:
         lf_levels = [0] * L
-    return [tuple(lv) if isinstance(lv, (tuple, list)) else (lv,) * 3
-            for lv in lf_levels]
+    return torch.as_tensor(np.asarray(
+        [tuple(lv) if isinstance(lv, (tuple, list)) else (lv,) * 3
+         for lv in lf_levels], np.int64).reshape(L, 3), device=device)
 
 
 def p_frame_deblocked(src, refs, q, lf, sharpness, interp):
-    """One P frame over `refs` (pad_ref states) with its leaf-mask deblock
-    at levels `lf` -> (raw dict of device tensors: r16 r32 r64 lvl filt,
-    deblocked (y, u, v) planes)."""
-    H, W = src[0].shape
+    """A batch of P frames ((F, h, w) planes) over `refs` (pad_ref states
+    shared by every frame), each with its leaf-mask deblock at its levels
+    lf ((F, 3)) -> (raw dict of device tensors with a leading frame axis:
+    r16 r32 r64 lvl filt; deblocked (F, h, w) planes)."""
+    H, W = src[0].shape[-2:]
     ry, ru, rv, ry2 = (list(t) for t in zip(*refs))
     out = p_frame(*src, ry, ru, rv, ry2, *q["pq"], q["lam"], q["hp"],
                   interp=interp)
-    rec = deblock_leafmask(*split_recon(out["rec"], H, W), *lf,
+    rec = deblock_leafmask(*split_recon(out["rec"], H, W), *lf.unbind(1),
                            _leaf_ids(out["lvl"]), sharpness=sharpness)
     raw = dict(r16=out["r16"], r32=out["r32"], r64=out["r64"],
                lvl=out["lvl"], filt=out["fsel"])
@@ -680,16 +765,20 @@ def p_frame_deblocked(src, refs, q, lf, sharpness, interp):
 
 
 def fetch_group(raws, recs):
-    """A group's device results on the host: raws[j] as numpy arrays with
-    `filt` an int, recs[j] deblocked (y, u, v) tensors (or None) as numpy
-    planes."""
-    host = []
-    for raw in raws:
-        d = {k: v.cpu().numpy() for k, v in raw.items() if k != "filt"}
-        d["filt"] = int(raw["filt"])
-        host.append(d)
-    recons = [None if r is None else
-              tuple(p.cpu().numpy() for p in r) for r in recs]
+    """A group's device results on the host, one entry a frame: each raw
+    of raws (p_frame_deblocked's, with a leading frame axis) as one numpy
+    dict a frame with `filt` an int, and each of recs (its frames'
+    deblocked (F, h, w) planes, or None) as (y, u, v) numpy planes a frame
+    (or None)."""
+    host, recons = [], []
+    for raw, rec in zip(raws, recs):
+        arrs = {k: v.cpu().numpy() for k, v in raw.items()}
+        planes = None if rec is None else [p.cpu().numpy() for p in rec]
+        for f, filt in enumerate(arrs.pop("filt")):
+            host.append({k: v[f] for k, v in arrs.items()})
+            host[-1]["filt"] = int(filt)
+            recons.append(None if planes is None
+                          else tuple(p[f] for p in planes))
     return host, recons
 
 
@@ -716,17 +805,19 @@ class DeviceChainEncoder:
         L = len(src_frames)
         refs = [last_planes] + ([arf_planes] if arf_planes is not None
                                 else [])
-        srcs, (last, *arf), per_q = upload_group(
+        srcs, (last, *arf), q = upload_group(
             src_frames, refs, qindexes, self.device)
-        lfs = deblock_levels(lf_levels, L)
+        lfs = deblock_levels(lf_levels, L, self.device)
         arf_ref = [pad_ref(*arf[0])] if arf else []
         state = pad_ref(*last)
         raws, recs = [], []
         for j in range(L):
-            raw, rec = p_frame_deblocked(srcs[j], [state] + arf_ref,
-                                         per_q[j], lfs[j], sharpness,
-                                         interp_search)
-            state = pad_ref(*rec)
+            # one frame at a time: each reads the previous one's recon
+            sl = slice(j, j + 1)
+            raw, rec = p_frame_deblocked(
+                tuple(p[sl] for p in srcs), [state] + arf_ref,
+                quant_frames(q, sl), lfs[sl], sharpness, interp_search)
+            state = pad_ref(*(p[0] for p in rec))
             raws.append(raw)
             recs.append(rec if recon == "all" or j == L - 1 else None)
         return fetch_group(raws, recs)
@@ -754,9 +845,11 @@ def _crop(planes, H, W):
 
 
 def _frame_quant(qindex: int, device):
-    """One frame's quantizer tensors, RD lambda and high-precision-MV
-    flag on `device` (to_device_state's per-frame entry)."""
-    return to_device_state([], [qindex], device)[1][0]
+    """One frame's quantizer tensors ((5, 2) each), RD lambda (0-d) and
+    high-precision-MV flag on `device`."""
+    q = quant_state([qindex], device)
+    return dict(pq=tuple(p[0] for p in q["pq"]), lam=q["lam"][0],
+                hp=q["hp"][0])
 
 
 class DeviceInterEncoder:

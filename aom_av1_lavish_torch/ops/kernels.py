@@ -57,19 +57,20 @@ ENTRY_LAUNCHES: dict[str, int] = {}
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
+_LL = ctypes.c_longlong
 _SIGNATURES = {
     "avl_gather_windows": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
                            _INT, _INT, _VP],
     "avl_block_ssd_at": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
-                         _INT, _INT, _INT, _VP],
+                         _INT, _INT, _INT, _INT, _LL, _VP],
     "avl_ssd_surface": [_VP, _VP, _VP, _INT, _INT, _INT, _VP],
     "avl_ssd_surface_plane": [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
-                              _INT, _INT, _INT, _INT, _VP],
+                              _INT, _INT, _INT, _INT, _INT, _LL, _VP],
     "avl_convolve_8tap": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
     "avl_convolve_8tap_plane": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT,
                                 _INT, _INT, _VP],
-    "avl_quantize_b": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                       ctypes.c_longlong, _INT, _INT, _VP],
+    "avl_quantize_b": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _INT,
+                       _INT, _LL, _VP],
     "avl_wave_encode": [_VP] * 11 + [_INT] * 6
     + [ctypes.c_float, ctypes.c_float, _VP],
 }
@@ -169,14 +170,17 @@ def block_ssd_at_plain(src, ref, base_r, base_c, nby: int, nbx: int,
     """Integer SSD of block b of the source grid (block (by, bx) is
     src[by*bsz:, bx*bsz:]) against the (bsz, bsz) window of ref at each of
     its candidate origins (base_r[b, k], base_c[b, k]), window indices
-    clamped to ref as gather_windows clamps them -> (B, C) int32."""
+    clamped to ref as gather_windows clamps them -> (B, C) int32.  With a
+    (F, H, W) stack of source planes the origins and the result are
+    (F, B, C): frame f's blocks against the one reference."""
     blk = stride_windows(src, 0, 0, nby, nbx, bsz, bsz).to(torch.int32)
     out = []
-    for k in range(base_r.shape[1]):
-        win = gather_windows_plain(ref, base_r[:, k], base_c[:, k], bsz, bsz)
-        d = win.to(torch.int32) - blk
-        out.append((d * d).sum((1, 2), dtype=torch.int32))
-    return torch.stack(out, 1)
+    for k in range(base_r.shape[-1]):
+        win = gather_windows_plain(ref, base_r[..., k].reshape(-1),
+                                   base_c[..., k].reshape(-1), bsz, bsz)
+        d = win.reshape(blk.shape).to(torch.int32) - blk
+        out.append((d * d).sum((-2, -1), dtype=torch.int32))
+    return torch.stack(out, -1)
 
 
 def block_ssd_at(src, ref, base_r, base_c, nby: int, nbx: int, bsz: int):
@@ -184,21 +188,29 @@ def block_ssd_at(src, ref, base_r, base_c, nby: int, nbx: int, bsz: int):
     (>= nby*bsz, >= nbx*bsz), uint8 reference plane (H, W), int32 origins
     (nby*nbx, C) -> (nby*nbx, C) int32, exact (at most bsz*bsz*255^2).
     One launch where the caller would gather C windows per block and
-    subtract, square and sum each.  bsz is 8 or 16 on the card."""
+    subtract, square and sum each.  A (F, h, w) stack of source planes
+    with (F, nby*nbx, C) origins takes every frame's blocks against the
+    one reference in the same launch -> (F, nby*nbx, C).  bsz is 8 or 16
+    on the card."""
     name = "gather_windows"
     B = nby * nbx
-    _require(src.dim() == 2 and ref.dim() == 2
+    _require(src.dim() in (2, 3) and ref.dim() == 2
              and src.dtype == torch.uint8 and ref.dtype == torch.uint8, name,
-             "block_ssd_at: src and ref must be 2-D uint8 planes")
-    _require(nby > 0 and nbx > 0 and src.shape[0] >= nby * bsz
-             and src.shape[1] >= nbx * bsz, name,
+             "block_ssd_at: src (a plane or a (F, h, w) stack) and ref must "
+             "be uint8 planes")
+    lead = tuple(src.shape[:-2])
+    _require(nby > 0 and nbx > 0 and src.shape[-2] >= nby * bsz
+             and src.shape[-1] >= nbx * bsz, name,
              f"block_ssd_at: src {tuple(src.shape)} does not hold "
              f"{nby}x{nbx} blocks of {bsz}")
-    _require(base_r.dim() == 2 and base_r.shape[0] == B
+    grid = ", ".join(map(str, lead + (B,)))
+    _require(base_r.dim() == len(lead) + 2
+             and tuple(base_r.shape[:-1]) == lead + (B,)
              and base_r.shape == base_c.shape
              and base_r.dtype == torch.int32
              and base_c.dtype == torch.int32, name,
-             f"block_ssd_at: base_r/base_c must be int32 ({B}, C) tensors")
+             f"block_ssd_at: base_r/base_c must be int32 ({grid}, C) "
+             "tensors")
     if _on_cpu(name, src, ref, base_r, base_c):
         return block_ssd_at_plain(src, ref, base_r, base_c, nby, nbx, bsz)
     _require(bsz in (8, 16), name, "block_ssd_at takes bsz 8 or 16")
@@ -206,12 +218,14 @@ def block_ssd_at(src, ref, base_r, base_c, nby: int, nbx: int, bsz: int):
     ref = ref.contiguous()
     base_r = base_r.contiguous()
     base_c = base_c.contiguous()
-    C = base_r.shape[1]
-    out = torch.empty((B, C), dtype=torch.int32, device=ref.device)
-    if C:
+    n_frames = lead[0] if lead else 1
+    C = base_r.shape[-1]
+    out = torch.empty(lead + (B, C), dtype=torch.int32, device=ref.device)
+    if C and n_frames:
         _launch(name, "avl_block_ssd_at", out.data_ptr(), src.data_ptr(),
                 ref.data_ptr(), base_r.data_ptr(), base_c.data_ptr(), B, C,
-                nbx, bsz, src.shape[1], ref.shape[0], ref.shape[1])
+                nbx, bsz, src.shape[-1], ref.shape[0], ref.shape[1],
+                n_frames, src.shape[-2] * src.shape[-1])
     return out
 
 
@@ -260,38 +274,50 @@ def ssd_surface(src_blk, win, bsz: int, radius: int):
 def stride_windows(plane, oy: int, ox: int, nby: int, nbx: int, bsz: int,
                     wsz: int):
     """(nby*nbx, wsz, wsz) windows at stride bsz over a plane (a view
-    until reshaped), window origin = block origin + (oy, ox)."""
+    until reshaped), window origin = block origin + (oy, ox); a (F, h, w)
+    stack of planes gives (F, nby*nbx, wsz, wsz)."""
     span_r = (nby - 1) * bsz + wsz
     span_c = (nbx - 1) * bsz + wsz
-    win = plane[oy:oy + span_r, ox:ox + span_c].unfold(0, wsz, bsz) \
-        .unfold(1, wsz, bsz)                       # (nby, nbx, wsz, wsz)
-    return win.reshape(nby * nbx, wsz, wsz)
+    win = plane[..., oy:oy + span_r, ox:ox + span_c].unfold(-2, wsz, bsz) \
+        .unfold(-2, wsz, bsz)                  # (..., nby, nbx, wsz, wsz)
+    return win.reshape(*plane.shape[:-2], nby * nbx, wsz, wsz)
 
 
 def ssd_surface_plane_plain(src, ref, nby: int, nbx: int, bsz: int,
                             radius: int, oy: int, ox: int):
     """ssd_surface_plain over the block grid of a source plane: block
     (by, bx) is src[by*bsz:, bx*bsz:] and its window starts at
-    (oy + by*bsz, ox + bx*bsz) of ref -> (nby*nbx, 2r+1, 2r+1) float32."""
-    win = stride_windows(ref, oy, ox, nby, nbx, bsz, 2 * radius + bsz)
+    (oy + by*bsz, ox + bx*bsz) of ref -> (nby*nbx, 2r+1, 2r+1) float32.
+    A (F, h, w) stack of source planes, each against the one reference,
+    gives (F, nby*nbx, 2r+1, 2r+1)."""
+    W = 2 * radius + bsz
+    win = stride_windows(ref, oy, ox, nby, nbx, bsz, W)
     blk = stride_windows(src, 0, 0, nby, nbx, bsz, bsz)
-    return ssd_surface_plain(blk, win, bsz, radius)
+    lead = blk.shape[:-3]
+    out = ssd_surface_plain(blk.reshape(-1, bsz, bsz),
+                            win.expand(*lead, *win.shape).reshape(-1, W, W),
+                            bsz, radius)
+    return out.reshape(*lead, nby * nbx, *out.shape[1:])
 
 
 def ssd_surface_plane(src, ref, nby: int, nbx: int, bsz: int, radius: int,
                       oy: int, ox: int):
     """K2 from planes: uint8 or int32 source plane (>= nby*bsz, >= nbx*bsz)
     and reference plane of the same dtype, which must hold every window:
-    rows oy .. oy + (nby-1)*bsz + 2r+bsz, columns likewise from ox.
-    bsz is 8 or 16 on the card."""
+    rows oy .. oy + (nby-1)*bsz + 2r+bsz, columns likewise from ox.  A
+    (F, h, w) stack of source planes is searched against the one reference
+    in the same launch -> (F, nby*nbx, 2r+1, 2r+1).  bsz is 8 or 16 on the
+    card."""
     name = "ssd_surface"
     W = 2 * radius + bsz
-    _require(src.dim() == 2 and ref.dim() == 2 and src.dtype == ref.dtype
+    _require(src.dim() in (2, 3) and ref.dim() == 2
+             and src.dtype == ref.dtype
              and src.dtype in (torch.uint8, torch.int32), name,
-             "src and ref must be 2-D planes, both uint8 or both int32")
+             "src (a plane or a (F, h, w) stack) and ref must be planes, "
+             "both uint8 or both int32")
     _require(nby > 0 and nbx > 0 and radius >= 0 and oy >= 0 and ox >= 0,
              name, "nby, nbx must be positive; radius, oy, ox non-negative")
-    _require(src.shape[0] >= nby * bsz and src.shape[1] >= nbx * bsz, name,
+    _require(src.shape[-2] >= nby * bsz and src.shape[-1] >= nbx * bsz, name,
              f"src {tuple(src.shape)} does not hold {nby}x{nbx} blocks of "
              f"{bsz}")
     _require(ref.shape[0] >= oy + (nby - 1) * bsz + W
@@ -302,14 +328,18 @@ def ssd_surface_plane(src, ref, nby: int, nbx: int, bsz: int, radius: int,
         return ssd_surface_plane_plain(src, ref, nby, nbx, bsz, radius, oy,
                                        ox)
     _require(bsz in (8, 16), name, "the plane form takes bsz 8 or 16")
+    lead = tuple(src.shape[:-2])
+    n_frames = lead[0] if lead else 1
+    _require(0 < n_frames <= 65535, name, "1 to 65535 source planes")
     src = src.contiguous()
     ref = ref.contiguous()
     S = 2 * radius + 1
-    out = torch.empty((nby * nbx, S, S), dtype=torch.float32,
+    out = torch.empty(lead + (nby * nbx, S, S), dtype=torch.float32,
                       device=ref.device)
     _launch(name, "avl_ssd_surface_plane", out.data_ptr(), src.data_ptr(),
-            ref.data_ptr(), src.shape[1], ref.shape[1], nby, nbx, bsz,
-            radius, oy, ox, src.element_size())
+            ref.data_ptr(), src.shape[-1], ref.shape[1], nby, nbx, bsz,
+            radius, oy, ox, src.element_size(), n_frames,
+            src.shape[-2] * src.shape[-1])
     return out
 
 
@@ -416,7 +446,12 @@ def convolve_8tap_plane(ref, base_r, base_c, kx, ky, bh: int, bw: int):
 def quantize_b_vec_plain(coeff, zbin, rnd, quant, qshift, deq,
                          log_scale: int):
     """aom_quantize_b over (..., n) coefficients with per-position
-    parameter vectors (n,); int32 math that wraps like the reference."""
+    parameter vectors (n,), or with a row of them per frame, (F, n) for
+    coefficients (F, ..., n); int32 math that wraps like the reference."""
+    if zbin.dim() == 2:
+        shape = (zbin.shape[0],) + (1,) * (coeff.dim() - 2) + (-1,)
+        zbin, rnd, quant, qshift, deq = (p.reshape(shape) for p in
+                                         (zbin, rnd, quant, qshift, deq))
     ac = coeff.abs()
     sign = torch.where(coeff < 0, -1, 1).to(torch.int32)
     above = ac >= zbin
@@ -428,15 +463,23 @@ def quantize_b_vec_plain(coeff, zbin, rnd, quant, qshift, deq,
 
 def quantize_b_vec(coeff, zbin, rnd, quant, qshift, deq, log_scale: int):
     """K4 (replaces pallas_kernels.quantize_b_vec): int32 coeff (..., n)
-    and int32 parameter vectors (n,) -> (qcoeff, dqcoeff) int32."""
+    and int32 parameter vectors (n,) -> (qcoeff, dqcoeff) int32.  With
+    parameter rows (F, n) and coeff (F, ..., n) each frame's coefficients
+    take its own row (a quantizer per frame), in the same launch."""
     name = "quantize_b_vec"
     n = coeff.shape[-1]
     params = (zbin, rnd, quant, qshift, deq)
     _require(coeff.dtype == torch.int32
              and all(p.dtype == torch.int32 for p in params), name,
              "coeff and parameters must be int32")
-    _require(all(tuple(p.shape) == (n,) for p in params), name,
-             f"parameter vectors must have shape ({n},)")
+    rows = zbin.shape[:-1]
+    _require(all(tuple(p.shape) == (n,) for p in params)
+             or (coeff.dim() >= 2 and all(tuple(p.shape) == (coeff.shape[0],
+                                                             n)
+                                          for p in params)), name,
+             f"parameter vectors must have shape ({n},), or "
+             f"({coeff.shape[0] if coeff.dim() else 'F'}, {n}) for a row a "
+             "frame of coeff's first axis")
     _require(0 <= int(log_scale) <= 2, name, "log_scale must be 0..2")
     if _on_cpu(name, coeff, *params):
         return quantize_b_vec_plain(coeff, *params, int(log_scale))
@@ -446,9 +489,10 @@ def quantize_b_vec(coeff, zbin, rnd, quant, qshift, deq, log_scale: int):
     dq = torch.empty_like(coeff)
     total = coeff.numel()
     if total:
+        per_row = total // rows[0] if rows else total
         _launch(name, "avl_quantize_b", q.data_ptr(), dq.data_ptr(),
                 coeff.data_ptr(), *[p.data_ptr() for p in params], total,
-                n, int(log_scale))
+                n, int(log_scale), per_row)
     return q, dq
 
 

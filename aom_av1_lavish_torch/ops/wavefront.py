@@ -48,10 +48,11 @@ def pq_array(pq) -> np.ndarray:
 
 def quantize(coeff, pq, log_scale: int, dc_mask):
     """Vectorized aom_quantize_b (the reference's _quantize_jnp) through
-    kernel K4.  coeff (..., n) int32; pq (5, 2) int32 tensor; dc_mask (n,)
-    bool tensor.  Returns (qcoeff, dqcoeff) int32."""
-    par = torch.where(dc_mask[None, :], pq[:, 0:1], pq[:, 1:2])   # (5, n)
-    zbin, rnd, quant, qshift, deq = par.unbind(0)
+    kernel K4.  coeff (..., n) int32; pq (5, 2) int32 tensor, or (F, 5, 2)
+    for coeff (F, ..., n): a quantizer per frame; dc_mask (n,) bool tensor.
+    Returns (qcoeff, dqcoeff) int32."""
+    par = torch.where(dc_mask, pq[..., 0:1], pq[..., 1:2])  # ([F,] 5, n)
+    zbin, rnd, quant, qshift, deq = par.unbind(-2)
     if log_scale:
         zbin = (zbin + (1 << log_scale >> 1)) >> log_scale
         rnd = (rnd + (1 << log_scale >> 1)) >> log_scale

@@ -182,20 +182,21 @@ def make_sharded_analyze(mesh: Mesh):
 def make_sharded_p_frame_fn(mesh, H: int, W: int, n_refs: int = 1):
     """Whole-frame P-frame analysis (motion search + MC + transforms +
     merge DP, no interp-filter search, no deblock) of a batch of frames
-    against shared references: fn(ys, us, vs, refs_y, refs_u, refs_v,
-    refs_y2, pq_y, pq_u, pq_v, lam, hp) with (F, ...) sources and
-    (n_refs, ...) padded references -> one p_frame result dict a frame.
-    The frames are independent given their references (the FPMT
-    condition, av1/encoder/ethread.c:1224)."""
+    against shared references, as one p_frame call over the batch's frame
+    axis: fn(ys, us, vs, refs_y, refs_u, refs_v, refs_y2, pq_y, pq_u, pq_v,
+    lam, hp) with (F, ...) sources, (n_refs, ...) padded references and
+    one frame's quantizer ((5, 2) each, a 0-d lam and an int hp) shared
+    by the batch -> p_frame's result dict, the frame axis first.  The
+    frames are independent given their references (the FPMT condition,
+    av1/encoder/ethread.c:1224)."""
     def fn(ys, us, vs, refs_y, refs_u, refs_v, refs_y2, pq_y, pq_u, pq_v,
            lam, hp):
+        nf = ys.shape[0]
         assert ys.shape[1:] == (H, W) and len(refs_y) == n_refs
         refs = [list(r) for r in (refs_y, refs_u, refs_v, refs_y2)]
-        # one p_frame a frame: batching the frame axis into single kernel
-        # launches would go here (ROADMAP Queue 2)
-        return [p_frame(ys[i], us[i], vs[i], *refs, pq_y, pq_u, pq_v, lam,
-                        hp, interp=False, merge=True)
-                for i in range(ys.shape[0])]
+        pq = [p.expand(nf, *p.shape) for p in (pq_y, pq_u, pq_v)]
+        return p_frame(ys, us, vs, *refs, *pq, lam.expand(nf), [hp] * nf,
+                       interp=False, merge=True)
     return fn
 
 
@@ -204,29 +205,23 @@ def fpmt_encode_group(mesh, src_frames, qindexes, last_planes,
                       device=None):
     """FPMT for the GopEncoder (av1_compress_parallel_frames,
     av1/encoder/ethread.c:1224): every P frame of the group references
-    only the fixed (LAST, ARF) pair, so the frames run with no chaining,
-    each over both references with the merge DP and the interp-filter
-    search, and each deblocked at its own levels.  mesh=None runs the same
-    program on `device` (the card when None).
+    only the fixed (LAST, ARF) pair, so the group runs as one program over
+    its frame axis, as the reference vmaps it: one p_frame call for all
+    its frames, each over both references with the merge DP and the
+    interp-filter search at its own quantizer, and one deblock call, each
+    frame at its own levels.  mesh=None runs the same program on `device`
+    (the card when None).
 
     src_frames: numpy planes or tensors already on the device.  Returns
     (raws, recons) like DeviceChainEncoder.encode_chain, with a recon for
     every frame (they are not chained)."""
     dev = _device_of(mesh, device)
-    L = len(src_frames)
-    srcs, (last, arf), per_q = upload_group(
+    srcs, (last, arf), q = upload_group(
         src_frames, [last_planes, arf_planes], qindexes, dev)
-    lfs = deblock_levels(lf_levels, L)
-    refs = [pad_ref(*last), pad_ref(*arf)]
-    raws, recs = [], []
-    # one frame after another: batching the frame axis into single kernel
-    # launches for the group's L frames would go here (ROADMAP Queue 2)
-    for j in range(L):
-        raw, rec = p_frame_deblocked(srcs[j], refs, per_q[j], lfs[j],
-                                     sharpness, True)
-        raws.append(raw)
-        recs.append(rec)
-    return fetch_group(raws, recs)
+    raw, rec = p_frame_deblocked(
+        srcs, [pad_ref(*last), pad_ref(*arf)], q,
+        deblock_levels(lf_levels, len(src_frames), dev), sharpness, True)
+    return fetch_group([raw], [rec])
 
 
 class ShardedInterGopEncoder:
@@ -273,15 +268,17 @@ class ShardedInterGopEncoder:
             return [anchor_payload]
         H, W = self.height, self.width
         fn = make_sharded_p_frame_fn(self.mesh, H, W, 1)
-        srcs, (anchor,), (q,) = upload_group(
+        (ys, us, vs), (anchor,), q = upload_group(
             [_crop(f, H, W) for f in pfrs], [anchor_rec], [self.qindex],
             self.device)
-        ys, us, vs = (torch.stack(p) for p in zip(*srcs))
         ry, ru, rv, ry2 = (p[None] for p in pad_ref(*anchor))
-        outs = fn(ys, us, vs, ry, ru, rv, ry2, *q["pq"], q["lam"], q["hp"])
+        out = fn(ys, us, vs, ry, ru, rv, ry2, *(p[0] for p in q["pq"]),
+                 q["lam"][0], q["hp"][0])
+        host = {k: out[k].cpu().numpy()
+                for k in ("r16", "r32", "r64", "lvl", "rec")}
         payloads = [anchor_payload]
         slots = [anchor_rec] + [None] * 7
-        for i, out in enumerate(outs):
+        for i in range(len(pfrs)):
             fh = make_inter_frame_header(self.sh, self.qindex,
                                          refresh_frame_flags=0)
             enc = TpuInterFrameEncoder(self.sh, fh, slots,
@@ -289,9 +286,8 @@ class ShardedInterGopEncoder:
                                        device=self.device)
             enc._results = None
             enc._external_results = True
-            enc._external_recon = split_recon(out["rec"].cpu().numpy(), H,
-                                              W)
-            enc._res_raw = {k: out[k].cpu().numpy()
+            enc._external_recon = split_recon(host["rec"][i], H, W)
+            enc._res_raw = {k: host[k][i]
                             for k in ("r16", "r32", "r64", "lvl")}
             obu = enc.encode_frame_obu(pfrs[i])
             payloads.append(HH.temporal_delimiter() + obu)

@@ -13,6 +13,10 @@
    is computed from the case's tensors.  K4's fused entry wave_encode
    (one wave of the wavefront KEY a launch) is held to its plain version
    too: every integer output exact, the float32 costs to 1e-6 relative.
+   The frame-axis forms that a frame-parallel group launches (K1 and K2
+   over the 6 P frames' sources against one reference, K4 with a quantizer
+   per frame) are also held against one launch a frame, and at one frame
+   against the single-frame form.
 2. Times the call paths that the plane-form entries of K2 and K3 and the
    fused forms of K1 and K4 replaced (cut windows -> int32 -> ssd_surface;
    gather -> int32 -> convolve_8tap; nine gathers each with its subtract,
@@ -36,8 +40,11 @@
    before it and read just after, each decoded with the port's decoder
    and held against the encoder's recon (or, lossless, the source):
    the default 1080p GOP with frame-parallel groups (FPMT,
-   parallel/sharding.fpmt_encode_group: the chained slice's launches,
-   stated counts per P frame, the same bytes on make_mesh(4, 1)), the
+   parallel/sharding.fpmt_encode_group: one launch per kernel entry for
+   the group's 6 P frames, so the chained slice's launches less 5 frames'
+   of them, and the same bytes on make_mesh(4, 1); then the group alone,
+   as one call beside one call a frame, with its peak device memory and
+   its results against the frames'), the
    same encode through the CLI (the clip as y4m, apps.enc --tpu --fp-mt 1,
    apps.dec), ShardedLosslessEncoder at 1920x1088 on make_mesh(2, 2), the
    device-RDO KEY in the default configuration at 720x576 and 352x288
@@ -54,8 +61,9 @@
 With --warm N each configuration's slice is run N more times and the
 stage medians are printed (and N runs of the default configuration with
 frame-parallel groups); with --profile one more default-configuration
-slice runs under torch.profiler and the device time of each hand kernel
-and the device-busy share are printed.
+slice and one with frame-parallel groups run under torch.profiler and the
+device time of each hand kernel, the other kernels' runs and the
+device-busy share are printed.
 
 Only the port is imported: jax and the JAX package are blocked.  Prints the
 card's name and power limit, one JSON line with each kernel's record, and
@@ -85,6 +93,8 @@ KW_DEFAULT = dict(qindex=QINDEX, gf_length=8, use_tpu=True,
                   enable_cdef=False)
 KW_CPU8 = dict(KW_DEFAULT, cpu_used=8)
 KW_FPMT = dict(KW_DEFAULT, frame_parallel=True)
+#: P frames in the frame-parallel group of the 8-frame GOP (KEY, ARF, 6 P)
+FPMT_FRAMES = 6
 PK = "aom_av1_lavish_tpu/ops/pallas_kernels.py"
 CSRC = "aom_av1_lavish_torch/ops/csrc"
 #: record name -> (source, the TPU kernel it replaces, the LAUNCHES key its
@@ -540,7 +550,103 @@ def _cases(dev):
         cases.append(("quantize_b_vec", "quantize_b_vec",
                       f"n{n} rows{rows} ls{log_scale} ({what})",
                       (coeff, *par, log_scale), (16 * rows * n, "int32")))
-    return cases + _wave_cases(dev)
+    return cases + _frame_axis_cases(dev, rng) + _wave_cases(dev)
+
+
+def _frame_axis_cases(dev, rng):
+    """The frame-axis forms that a 1080p frame-parallel group launches,
+    with its FPMT_FRAMES P frames: K2's full-res (uint8, bsz 16) and
+    half-res (int32 2x2 sums, bsz 8) surfaces of every frame's source
+    against one padded reference, K1's 3x3 refine of every frame's blocks,
+    and K4 with a quantizer per frame (qindex 100 + 10 f) at the shapes of
+    the luma and chroma 16x16 level and the 32 and 64 merge levels.  Their
+    labels carry " F<frames> " (phase_kernels holds each against one
+    launch a frame)."""
+    import numpy as np
+    import torch
+
+    from aom_av1_lavish_torch.common import quant as Q
+    from aom_av1_lavish_torch.ops.wavefront import pq_array
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    nf = FPMT_FRAMES
+    nby, nbx = H // 16, W // 16
+    B = nby * nbx
+    cases = []
+    src = t(rng.integers(0, 256, (nf, H, W)).astype(np.uint8))
+    ref = t(rng.integers(0, 256, (H + 2 * PADR, W + 2 * PADR))
+            .astype(np.uint8))
+    cases.append(("ssd_surface", "ssd_surface_plane",
+                  f"plane uint8 bsz16 r16 F{nf} B{B}",
+                  (src, ref, nby, nbx, 16, 16, PADR - 16, PADR - 16),
+                  (3 * nf * B * 33 ** 2 * 256, "uint8")))
+    src_h = t(rng.integers(0, 1021, (nf, H // 2, W // 2)).astype(np.int32))
+    ref_h = t(rng.integers(0, 1021, ((H + 2 * PADR) // 2,
+                                     (W + 2 * PADR) // 2)).astype(np.int32))
+    cases.append(("ssd_surface", "ssd_surface_plane",
+                  f"plane int32 bsz8 r16 F{nf} B{B}",
+                  (src_h, ref_h, nby, nbx, 8, 16, PADR // 2 - 16,
+                   PADR // 2 - 16), (3 * nf * B * 33 ** 2 * 64, "int32")))
+    off = np.array([-1, 0, 1])
+    y0 = np.repeat(np.arange(nby), nbx) * 16
+    x0 = np.tile(np.arange(nbx), nby) * 16
+    cy = PADR + y0 + rng.integers(-32, 33, (nf, B))
+    cx = PADR + x0 + rng.integers(-32, 33, (nf, B))
+    cases.append(("block_ssd_at", "block_ssd_at", f"bsz16 3x3 F{nf} B{B}",
+                  (src, ref,
+                   t((cy[..., None] + np.repeat(off, 3)).astype(np.int32)),
+                   t((cx[..., None] + np.tile(off, 3)).astype(np.int32)),
+                   nby, nbx, 16), (3 * nf * B * 9 * 256, "uint8")))
+    pqs = [pq_array(Q.build_plane_quant(100 + 10 * f, 0, 0))
+           for f in range(nf)]
+    for n, rows, log_scale in ((256, B, 0), (64, B, 0), (1024, B // 4, 1),
+                               (1024, B // 16, 2)):
+        dc = np.arange(n) == 0
+        par = [t(np.stack([np.where(dc, pq[i][0], pq[i][1]) for pq in pqs])
+                 .astype(np.int32)) for i in range(5)]
+        coeff = t(rng.integers(-(1 << 15), 1 << 15, (nf, rows, n))
+                  .astype(np.int32))
+        cases.append(("quantize_b_vec", "quantize_b_vec",
+                      f"n{n} rows{rows} F{nf} q per frame",
+                      (coeff, *par, log_scale),
+                      (16 * nf * rows * n, "int32")))
+    return cases
+
+
+def frame_args(fn: str, args, sl):
+    """The arguments of a frame-axis case cut to the frames `sl` (an int:
+    one frame, in the single-frame form)."""
+    if fn == "ssd_surface_plane":
+        return (args[0][sl], *args[1:])
+    if fn == "block_ssd_at":
+        return (args[0][sl], args[1], args[2][sl], args[3][sl], *args[4:])
+    return (args[0][sl], *(p[sl] for p in args[1:6]), args[6])
+
+
+def check_frame_axis(K, fn: str, label: str, args) -> None:
+    """A frame-axis case on the card: its launch equals one launch a frame
+    of the single-frame form, stacked, and its first frame cut as a batch
+    of one equals that frame's single-frame launch."""
+    import torch
+
+    wrapper = getattr(K, fn)
+    got = wrapper(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    per = [wrapper(*frame_args(fn, args, f)) for f in range(FPMT_FRAMES)]
+    per = [p if isinstance(p, tuple) else (p,) for p in per]
+    one = wrapper(*frame_args(fn, args, slice(0, 1)))
+    one = one if isinstance(one, tuple) else (one,)
+    for i, g in enumerate(got):
+        if not torch.equal(g, torch.stack([p[i] for p in per])):
+            raise AssertionError(f"{fn} {label}: the batch differs from "
+                                 "one launch a frame")
+        if not torch.equal(one[i], per[0][i][None]):
+            raise AssertionError(f"{fn} {label}: a batch of one frame "
+                                 "differs from the single-frame form")
+    log(f"{fn} {label}: equal to {FPMT_FRAMES} single-frame launches, and "
+        "at F=1 to the single-frame form")
 
 
 def bound_ms(nbytes, operations):
@@ -618,6 +724,8 @@ def phase_kernels(dev) -> dict:
         if err != 0.0:
             raise AssertionError(f"{name} {label}: kernel differs from its "
                                  f"plain version (max abs err {err})")
+        if f" F{FPMT_FRAMES} " in f"{label} ":
+            check_frame_axis(K, fn, label, args)
         n_cases += 1
     log(f"{n_cases} cases bit-equal to their plain versions")
     # what a frame's waves cost at the least: they depend on each other, so
@@ -879,7 +987,7 @@ def phase_warm(dev, frames, label, kw, n: int) -> None:
         " MiB")
 
 
-def phase_profile(dev, frames, kw) -> None:
+def phase_profile(dev, frames, label, kw) -> None:
     """One slice in configuration `kw` under torch.profiler: device time
     of each hand kernel, of everything else, and the device-busy share of
     the wall clock."""
@@ -916,7 +1024,8 @@ def phase_profile(dev, frames, kw) -> None:
     total_us = hand_us + other_us + copies_us
     if total_us <= 0:
         raise AssertionError("the profiler recorded no device time")
-    log(f"profiled slice: {secs:.3f} s wall clock under the profiler, "
+    log(f"profiled slice {label}: {secs:.3f} s wall clock under the "
+        f"profiler, "
         f"{total_us / 1e3:.2f} ms of device time "
         f"({100 * total_us / 1e6 / secs:.1f}% of that wall clock)")
     for name, (us, n) in hand.items():
@@ -1349,7 +1458,8 @@ def phase_intra_batch(dev, tmp, frames) -> dict:
 @contextlib.contextmanager
 def launches_per_call(module, name: str, calls: list):
     """Wraps `module.<name>` while the block runs: each call appends (its
-    positional arguments, the kernel launches it made) to `calls`."""
+    positional arguments, its keyword arguments, the kernel launches it
+    made) to `calls`."""
     from aom_av1_lavish_torch.ops import kernels as K
 
     orig = getattr(module, name)
@@ -1360,8 +1470,8 @@ def launches_per_call(module, name: str, calls: list):
             return orig(*a, **k)
         finally:
             after = dict(K.LAUNCHES, **K.ENTRY_LAUNCHES)
-            calls.append((a, {key: v - before.get(key, 0)
-                              for key, v in after.items()}))
+            calls.append((a, k, {key: v - before.get(key, 0)
+                                 for key, v in after.items()}))
 
     setattr(module, name, spy)
     try:
@@ -1370,30 +1480,29 @@ def launches_per_call(module, name: str, calls: list):
         setattr(module, name, orig)
 
 
-def fpmt_per_frame(qindex: int) -> dict:
-    """Launches of one 1080p P frame of a frame-parallel group, both
-    references searched: per reference two K2 surfaces (full and half
-    res) and one fused K1 refine; K3 90 (1/8-pel MVs, q < 128) or 82:
-    each reference's sub-pel refine, the snap candidates, the three
+def fpmt_per_group(qindexes) -> dict:
+    """Launches of one 1080p frame-parallel group, whatever its number of
+    P frames (each kernel entry takes all of them at once; a chained P
+    frame is a group of one), both references searched: per reference two
+    K2 surfaces (full and half res) and one fused K1 refine; K3 90 when a
+    frame of the group has 1/8-pel MVs (q < 128), else 82: each
+    reference's sub-pel refine, the snap candidates, the three
     interp-filter banks, two chroma planes, and 7 a merge level; K4 once
     per plane and level."""
     return {"ssd_surface": 4, "avl_ssd_surface_plane": 4,
             "gather_windows": 2, "avl_block_ssd_at": 2,
             "avl_gather_windows": 0,
-            "convolve_8tap": 90 if qindex < 128 else 82,
+            "convolve_8tap": 90 if min(qindexes) < 128 else 82,
+            "avl_convolve_8tap_plane": 90 if min(qindexes) < 128 else 82,
             "quantize_b_vec": 9, "avl_quantize_b": 9, "avl_wave_encode": 0}
 
 
 def require_group_launches(label, calls) -> None:
-    """Each fpmt_encode_group call launched fpmt_per_frame's counts for
-    each of its frames."""
+    """Each fpmt_encode_group call launched fpmt_per_group's counts."""
     if not calls:
         raise AssertionError(f"{label}: no frame-parallel group ran")
-    for args, got in calls:
-        want = {}
-        for q in args[2]:
-            for k, v in fpmt_per_frame(q).items():
-                want[k] = want.get(k, 0) + v
+    for args, _, got in calls:
+        want = fpmt_per_group(args[2])
         wrong = {k: (got.get(k, 0), v) for k, v in want.items()
                  if got.get(k, 0) != v}
         if wrong:
@@ -1401,17 +1510,17 @@ def require_group_launches(label, calls) -> None:
                                  f"frames, launches (counted, expected) "
                                  f"{wrong}")
         log(f"  {label}: group of {len(args[2])} P frames (q "
-            f"{list(args[2])}), per P frame "
-            f"{json.dumps({k: v // len(args[2]) for k, v in got.items()})}")
+            f"{list(args[2])}), launches per group {json.dumps(got)}")
 
 
 def phase_fpmt(dev, frames, slice_launches):
     """The default-configuration 1080p GOP with frame-parallel groups
     (GopEncoder(frame_parallel=True) -> parallel/sharding
-    fpmt_encode_group): launches per P frame and in all (the same as the
-    chained slice's, frame for frame), decoded by the port's decoder
-    against the encoder's recon, and the same bytes on a make_mesh(4, 1)
-    layout -> (launches, payloads, shown frames)."""
+    fpmt_encode_group): each group's launches (fpmt_per_group), and the
+    GOP's: the chained slice's with the group's P frames counted once as a
+    group instead of once each; decoded by the port's decoder against the
+    encoder's recon, and the same bytes on a make_mesh(4, 1) layout ->
+    (launches, payloads, shown frames, the first group's call)."""
     from aom_av1_lavish_torch.encoder.gop import GopEncoder
     from aom_av1_lavish_torch.parallel import sharding
 
@@ -1423,9 +1532,22 @@ def phase_fpmt(dev, frames, slice_launches):
             return enc, enc.encode_sequence(frames)
 
     (enc, payloads), _, launches = timed_path(
-        f"FPMT GOP {W}x{H}, {N_FRAMES} frames", run, need=ALL_KERNELS,
-        expected=slice_launches)
+        f"FPMT GOP {W}x{H}, {N_FRAMES} frames", run, need=ALL_KERNELS)
     require_group_launches("FPMT", groups)
+    want = dict(slice_launches)
+    for args, _, _ in groups:
+        for k, v in fpmt_per_group(args[2]).items():
+            want[k] = want.get(k, 0) + v - sum(
+                fpmt_per_group([q])[k] for q in args[2])
+    wrong = {k: (launches.get(k, 0), v) for k, v in want.items()
+             if launches.get(k, 0) != v}
+    if wrong:
+        raise AssertionError(f"FPMT GOP: launches (counted, expected) "
+                             f"{wrong}")
+    log(f"  FPMT GOP launches equal the chained slice's less "
+        f"{sum(len(a[2]) for a, _, _ in groups) - len(groups)} P frames' "
+        f"(each group's frames counted once): {json.dumps(want)}")
+    group_call = groups[0][:2]
     shown, state = decode_payloads(payloads)
     if len(shown) != N_FRAMES:
         raise AssertionError(f"FPMT: decoded {len(shown)} frames")
@@ -1439,7 +1561,88 @@ def phase_fpmt(dev, frames, slice_launches):
     log(f"  decode: {len(shown)} frames; {n} slot planes equal the encoder "
         f"recon; make_mesh(4, 1): the same {sum(map(len, payloads))} bytes "
         f"({secs:.3f} s)")
-    return launches, payloads, shown
+    return launches, payloads, shown, group_call
+
+
+def phase_fpmt_group(dev, call) -> None:
+    """The GOP's frame-parallel group on its own, as the GOP called it:
+    the group as one call (one launch per kernel entry for all its P
+    frames) beside one call a frame, in turns (group, frames, frames,
+    group), with each run's host seconds (device synchronized) and peak
+    device memory; the group's results against the frames' (any
+    difference is logged: the float stages are reduced frame by frame, so
+    none is expected); and the device kernel runs of each, counted by
+    torch.profiler."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from aom_av1_lavish_torch.ops import kernels as K
+    from aom_av1_lavish_torch.parallel import sharding
+
+    args, kw = call
+    mesh, srcs, qs, last, arf = args
+    lfs = kw.get("lf_levels")
+    nf = len(srcs)
+
+    def group():
+        return sharding.fpmt_encode_group(mesh, srcs, qs, last, arf, **kw)
+
+    def frames():
+        raws, recs = [], []
+        for j in range(nf):
+            r, c = sharding.fpmt_encode_group(
+                mesh, srcs[j:j + 1], qs[j:j + 1], last, arf,
+                **dict(kw, lf_levels=None if lfs is None else lfs[j:j + 1]))
+            raws += r
+            recs += c
+        return raws, recs
+
+    def timed(fn):
+        """-> (fn's result, seconds, peak device memory, the memory held
+        before it, launches)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return (out, secs, torch.cuda.max_memory_allocated(), base,
+                dict(K.LAUNCHES, **K.ENTRY_LAUNCHES))
+
+    g0, tg0, pg, base, lg = timed(group)
+    f0, tf0, pf, _, lf = timed(frames)
+    tf1 = timed(frames)[1]
+    tg1 = timed(group)[1]
+    require_group_launches("FPMT group alone", [(args, kw, lg)])
+    diff = [(j, k) for j in range(nf) for k in g0[0][j]
+            if not np.array_equal(g0[0][j][k], f0[0][j][k])]
+    diff += [(j, f"recon plane {i}") for j in range(nf)
+             for i in range(3)
+             if not np.array_equal(g0[1][j][i], f0[1][j][i])]
+    log(f"FPMT group {W}x{H}, {nf} P frames (q {list(qs)}): one call "
+        f"{(tg0 + tg1) / 2:.4f} s ({tg0:.4f}, {tg1:.4f}), peak device "
+        f"memory {pg / 2**20:.1f} MiB ({base / 2**20:.1f} MiB held before "
+        f"it); one call a frame {(tf0 + tf1) / 2:.4f} s ({tf0:.4f}, "
+        f"{tf1:.4f}), peak {pf / 2**20:.1f} MiB; launches {json.dumps(lg)} "
+        f"| {json.dumps(lf)}")
+    log(f"  group against one call a frame: "
+        f"{'every result equal' if not diff else f'differences {diff}'}")
+    runs = []
+    for fn in (group, frames):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        runs.append(sum(ev.count for ev in prof.key_averages()
+                        if ev.device_type == DeviceType.CUDA
+                        and "memcpy" not in ev.key.lower()
+                        and "memset" not in ev.key.lower()))
+    log(f"  device kernel runs (torch.profiler): one call {runs[0]}, one "
+        f"call a frame {runs[1]} ({runs[1] / nf:.0f} a frame)")
 
 
 def phase_cli(dev, tmp, frames, launches_fpmt, payloads, shown) -> dict:
@@ -1628,8 +1831,8 @@ def main() -> int:
                     help="run each configuration's slice N more times and "
                     "print medians")
     ap.add_argument("--profile", action="store_true",
-                    help="run one more default-configuration slice under "
-                    "torch.profiler")
+                    help="run one more default-configuration slice, and one "
+                    "with frame-parallel groups, under torch.profiler")
     opts = ap.parse_args()
 
     import torch
@@ -1676,7 +1879,8 @@ def main() -> int:
         phase_warm(dev, frames, "default", KW_DEFAULT, opts.warm)
         phase_warm(dev, frames, "FPMT", KW_FPMT, opts.warm)
     if opts.profile:
-        phase_profile(dev, frames, KW_DEFAULT)
+        phase_profile(dev, frames, "default", KW_DEFAULT)
+        phase_profile(dev, frames, "FPMT", KW_FPMT)
     phase_decode(dev, make_frames(N_FRAMES, 352, 288), 352, 288,
                  "cpu_used 8", KW_CPU8)
     phase_decode(dev, make_frames(N_FRAMES, 768, 576), 768, 576, "default",
@@ -1686,9 +1890,11 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     by_path = {}
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
-        by_path["fpmt"], fpmt_payloads, fpmt_shown = phase_fpmt(
+        by_path["fpmt"], fpmt_payloads, fpmt_shown, group_call = phase_fpmt(
             dev, frames, launches)
         lap("FPMT")
+        phase_fpmt_group(dev, group_call)
+        lap("FPMT group alone")
         by_path["cli"] = phase_cli(dev, tmp, frames, by_path["fpmt"],
                                    fpmt_payloads, fpmt_shown)
         lap("CLI")

@@ -433,3 +433,106 @@ def test_cuda_fpmt_gop_writes_the_stream_of_the_cpu_run(cuda_device, mesh):
         launched = {k for k, v in K.LAUNCHES.items() if v > 0}
         assert launched == (set(K.LAUNCHES) if device != "cpu" else set())
     assert all(out[0]) and out[0] == out[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bsz,radius,hi", [
+    (torch.uint8, 16, 16, 256), (torch.int32, 8, 16, 1021),
+    (torch.uint8, 8, 5, 256), (torch.int32, 16, 3, 1021)])
+def test_cuda_ssd_surface_plane_frames_match_plain(cuda_device, dtype, bsz,
+                                                   radius, hi):
+    """K2 from planes with a frame axis on the card, exact: 3 source
+    planes (of a width whose frame stride breaks 16-byte alignment) against
+    one reference in one launch, equal to the plain version and to one
+    launch a frame."""
+    rng = np.random.default_rng(3 * bsz + radius)
+    nby, nbx, oy, ox = 7, 9, 1, 3
+    Wn = 2 * radius + bsz
+    npdt = np.uint8 if dtype == torch.uint8 else np.int32
+    src = torch.as_tensor(rng.integers(0, hi, (3, nby * bsz + 1,
+                                               nbx * bsz + 3))
+                          .astype(npdt), device=cuda_device)
+    ref = torch.as_tensor(rng.integers(
+        0, hi, (oy + (nby - 1) * bsz + Wn, ox + (nbx - 1) * bsz + Wn))
+        .astype(npdt), device=cuda_device)
+    before = K.LAUNCHES["ssd_surface"]
+    got = K.ssd_surface_plane(src, ref, nby, nbx, bsz, radius, oy, ox)
+    assert K.LAUNCHES["ssd_surface"] == before + 1
+    assert torch.equal(got, K.ssd_surface_plane_plain(src, ref, nby, nbx, bsz,
+                                                      radius, oy, ox))
+    assert torch.equal(got, torch.stack([K.ssd_surface_plane(
+        s, ref, nby, nbx, bsz, radius, oy, ox) for s in src]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz", [16, 8])
+def test_cuda_block_ssd_at_frames_match_plain(cuda_device, bsz):
+    """K1's fused form with a frame axis on the card, exact: 3 frames' 3x3
+    neighbourhoods, some off the reference, in one launch."""
+    rng = np.random.default_rng(bsz + 1)
+    nby, nbx = 5, 7
+    B = nby * nbx
+    src = torch.as_tensor(rng.integers(0, 256, (3, nby * bsz + 2,
+                                                nbx * bsz + 5))
+                          .astype(np.uint8), device=cuda_device)
+    ref = torch.as_tensor(rng.integers(0, 256, (90, 117)).astype(np.uint8),
+                          device=cuda_device)
+    off = np.array([-1, 0, 1])
+    cy = rng.integers(-bsz - 20, 110, (3, B))[..., None] + np.repeat(off, 3)
+    cx = rng.integers(-bsz - 20, 137, (3, B))[..., None] + np.tile(off, 3)
+    br, bc = (torch.as_tensor(a.astype(np.int32), device=cuda_device)
+              for a in (cy, cx))
+    before = K.ENTRY_LAUNCHES.get("avl_block_ssd_at", 0)
+    got = K.block_ssd_at(src, ref, br, bc, nby, nbx, bsz)
+    assert K.ENTRY_LAUNCHES["avl_block_ssd_at"] == before + 1
+    assert torch.equal(got, K.block_ssd_at_plain(src, ref, br, bc, nby, nbx,
+                                                 bsz))
+    assert torch.equal(got, torch.stack([K.block_ssd_at(
+        src[f], ref, br[f], bc[f], nby, nbx, bsz) for f in range(3)]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,log_scale", [(64, 0), (256, 0), (1024, 1),
+                                         (1024, 2)])
+def test_cuda_quantize_b_vec_frame_rows_match_plain(cuda_device, n,
+                                                    log_scale):
+    """K4 with a parameter row a frame on the card, exact (random params
+    that make the int32 products wrap)."""
+    rng = np.random.default_rng(n * 3 + log_scale)
+
+    def t(a):
+        return torch.as_tensor(a.astype(np.int32), device=cuda_device)
+
+    coeff = t(rng.integers(-(1 << 20), 1 << 20, (6, 301, n)))
+    par = [t(rng.integers(a, b, (6, n)))
+           for a, b in ((20, 1000), (10, 500), (1 << 12, 1 << 16),
+                        (1 << 14, 1 << 16), (4, 7000))]
+    before = K.LAUNCHES["quantize_b_vec"]
+    q, dq = K.quantize_b_vec(coeff, *par, log_scale)
+    assert K.LAUNCHES["quantize_b_vec"] == before + 1
+    qp, dqp = K.quantize_b_vec_plain(coeff, *par, log_scale)
+    assert torch.equal(q, qp) and torch.equal(dq, dqp)
+
+
+@pytest.mark.cuda
+def test_cuda_fpmt_group_launches_each_entry_once_a_group(cuda_device):
+    """fpmt_encode_group on the card: one launch per kernel entry for the
+    group's 4 frames, as many as for one frame (K2 4, K1 2, K3 90, K4 9),
+    and the CPU's results."""
+    from aom_av1_lavish_torch.parallel.sharding import fpmt_encode_group
+    from aom_av1_lavish_torch.utils.clips import make_frames
+    frames = make_frames(6, 96, 64)
+    args = (frames[1:5], [80, 96, 130, 110], frames[0], frames[5])
+    kw = dict(lf_levels=[(10, 4, 4), 12, 0, (20, 8, 6)])
+    K.reset_launches()
+    raws, recs = fpmt_encode_group(None, *args, device=cuda_device, **kw)
+    assert K.LAUNCHES == {"ssd_surface": 4, "gather_windows": 2,
+                          "convolve_8tap": 90, "quantize_b_vec": 9}
+    craws, crecs = fpmt_encode_group(None, *args, device="cpu", **kw)
+    for a, b in zip(raws, craws):
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+    for a, b in zip(recs, crecs):
+        for pa, pb in zip(a, b):
+            np.testing.assert_array_equal(pa, pb)
