@@ -674,9 +674,10 @@ def block_cost_volume(cur, ref, block: int, radius: int):
     `ref` at offsets within +-radius (the reference edge-padded by radius):
     (Hb*Wb, 2r+1, 2r+1) float32.  cur and ref are integer planes of one
     shape whose sides are multiples of block: uint8 as they are, deeper
-    samples as int32 (exact while block^2 * peak^2 < 2^31, i.e. to 10
-    bits at block 16).  The motion pass of TPL and of the temporal filter;
-    K2's plane form."""
+    samples as int32 (K2's sums wrap past 2^31, i.e. above 10 bits at
+    block 16); each entry rounded as the reference's surface rounds
+    (kernels.ssd_value_plain).  The motion pass of TPL and of the temporal
+    filter; K2's plane form."""
     if cur.dtype != torch.uint8 or ref.dtype != torch.uint8:
         cur, ref = cur.to(torch.int32), ref.to(torch.int32)
     H, W = cur.shape

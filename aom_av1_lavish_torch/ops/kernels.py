@@ -263,23 +263,53 @@ def block_ssd_at(src, ref, base_r, base_c, nby: int, nbx: int, bsz: int):
 # K2: SSD surface
 
 
-def ssd_surface_plain(src_blk, win, bsz: int, radius: int):
-    """(B, bsz, bsz) source blocks x (B, W, W) windows -> (B, 2r+1, 2r+1)
-    float32 SSD, summed exactly in int32 and converted once."""
+def ssd_value_plain(s2, w2, c):
+    """A surface entry from S2 = sum(s^2), W2 = sum(w^2) and C = sum(s*w)
+    over one candidate position, each summed exactly in int32 -> float32,
+    rounded as the JAX package's surface rounds: e_src + e_ref - 2*corr in
+    float32.  Where S2, W2 and C all lie in [0, 2^24) every partial sum of
+    the reference is an exact integer, in any order, and its one rounding
+    is the add S2 + W2, so the entry is R(S2 + W2) - 2C (R: to nearest
+    even float32; S2 + W2 < 2^25, and the subtraction is exact).  Past
+    2^24 the reference's value depends on the order in which XLA sums
+    (only half-resolution int32 planes get there): the entry is then the
+    exact S2 + W2 - 2C, converted once."""
+    order_free = ((s2 | w2 | c) >> 24) == 0
+    return torch.where(order_free,
+                       (s2 + w2).to(torch.float32)
+                       - (2 * c).to(torch.float32),
+                       (s2 + w2 - 2 * c).to(torch.float32))
+
+
+def ssd_sums_plain(src_blk, win, bsz: int, radius: int):
+    """(B, bsz, bsz) source blocks x (B, W, W) windows -> S2 (B, 1, 1),
+    W2 and C (B, 2r+1, 2r+1), int32: the sums of s^2, w^2 and s*w over
+    each candidate position."""
     S = 2 * radius + 1
     src = src_blk.to(torch.int32)
     w = win.to(torch.int32)
+    s2 = (src * src).sum((1, 2), dtype=torch.int32)[:, None, None]
+    w2 = (w * w).unfold(1, bsz, 1).sum(-1, dtype=torch.int32) \
+        .unfold(2, bsz, 1).sum(-1, dtype=torch.int32)
     rows = []
     for dy in range(S):
         band = w[:, dy:dy + bsz, :].unfold(2, bsz, 1)   # (B, bsz, S, bsz)
-        d = band - src[:, :, None, :]
-        rows.append((d * d).sum((1, 3), dtype=torch.int32))
-    return torch.stack(rows, 1).to(torch.float32)
+        rows.append((band * src[:, :, None, :]).sum((1, 3),
+                                                    dtype=torch.int32))
+    return s2, w2, torch.stack(rows, 1)
+
+
+def ssd_surface_plain(src_blk, win, bsz: int, radius: int):
+    """(B, bsz, bsz) source blocks x (B, W, W) windows -> (B, 2r+1, 2r+1)
+    float32 SSD: S2, W2 and C summed exactly in int32, each entry rounded
+    by ssd_value_plain."""
+    return ssd_value_plain(*ssd_sums_plain(src_blk, win, bsz, radius))
 
 
 def ssd_surface(src_blk, win, bsz: int, radius: int):
     """K2 (replaces pallas_kernels.ssd_surface): int32 src (B, bsz, bsz)
-    and win (B, 2r+bsz, 2r+bsz) -> (B, 2r+1, 2r+1) float32."""
+    and win (B, 2r+bsz, 2r+bsz) -> (B, 2r+1, 2r+1) float32, each entry
+    rounded as the reference's surface rounds (ssd_value_plain)."""
     name = "ssd_surface"
     W = 2 * radius + bsz
     B = src_blk.shape[0]
@@ -317,7 +347,8 @@ def ssd_surface_plane_plain(src, ref, nby: int, nbx: int, bsz: int,
                             radius: int, oy: int, ox: int):
     """ssd_surface_plain over the block grid of a source plane: block
     (by, bx) is src[by*bsz:, bx*bsz:] and its window starts at
-    (oy + by*bsz, ox + bx*bsz) of ref -> (nby*nbx, 2r+1, 2r+1) float32.
+    (oy + by*bsz, ox + bx*bsz) of ref -> (nby*nbx, 2r+1, 2r+1) float32,
+    each entry rounded by ssd_value_plain's rule.
     A (F, h, w) stack of source planes, each against the one reference,
     gives (F, nby*nbx, 2r+1, 2r+1)."""
     W = 2 * radius + bsz
@@ -334,10 +365,11 @@ def ssd_surface_plane(src, ref, nby: int, nbx: int, bsz: int, radius: int,
                       oy: int, ox: int):
     """K2 from planes: uint8 or int32 source plane (>= nby*bsz, >= nbx*bsz)
     and reference plane of the same dtype, which must hold every window:
-    rows oy .. oy + (nby-1)*bsz + 2r+bsz, columns likewise from ox.  A
-    (F, h, w) stack of source planes is searched against the one reference
-    in the same launch -> (F, nby*nbx, 2r+1, 2r+1).  bsz is 8 or 16 on the
-    card."""
+    rows oy .. oy + (nby-1)*bsz + 2r+bsz, columns likewise from ox ->
+    (nby*nbx, 2r+1, 2r+1) float32, each entry rounded by
+    ssd_value_plain's rule.  A (F, h, w) stack of source planes is searched
+    against the one reference in the same launch -> (F, nby*nbx, 2r+1,
+    2r+1).  bsz is 8 or 16 on the card."""
     name = "ssd_surface"
     W = 2 * radius + bsz
     _require(src.dim() in (2, 3) and ref.dim() == 2

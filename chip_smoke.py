@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (aom_av1_lavish_torch) on one GPU.
 
-    python3 chip_smoke.py [--warm N] [--profile]
+    python3 chip_smoke.py [--warm N] [--profile] [--before DIR [DIR ...]]
 
 1. Builds the hand-written CUDA kernels (ops/csrc/*.cu) into
    build/torch_kernels/ and holds each kernel entry against its plain
@@ -21,7 +21,9 @@
    fused forms of K1 and K4 replaced (cut windows -> int32 -> ssd_surface;
    gather -> int32 -> convolve_8tap; nine gathers each with its subtract,
    square and sum; a wave as three planes of torch ops around three
-   quantizer launches) beside the new forms, in turns, on the same inputs.
+   quantizer launches) beside the new forms, in turns, on the same inputs;
+   with --before DIR... (checkouts of other commits) also each one's K2
+   plane kernel beside this one's at K2's headline shapes.
    Then holds each P-frame program (ops/graphs.DeviceProgram: a CUDA graph
    captured once a key and replayed) at 1920x1088 against its plain
    version, the eager function it captured, on two successive groups of
@@ -63,7 +65,9 @@
    1920x1088 with 4 frames beside 1.
 6. Runs every one of those paths at 96x64 on the card and on the CPU (and
    the FPMT GOP, ShardedInterGopEncoder and the api.Encoder lossless and
-   GOP routes), then the 352x288 cpu_used 8 GOP, then the 1920x1088 GOP
+   GOP routes), then the 352x288 cpu_used 8 GOP, on the clip as it is and
+   with its luma stretched to 0..255 (where K2's rounding rule takes
+   effect, ROADMAP F1), then the 1920x1088 GOP
    at cpu_used 8 and with frame-parallel groups, 4 frames each (a
    wavefront KEY, a hidden ARF and two P frames, chained or as one group):
    the streams must be equal byte for byte (on a difference the first
@@ -318,6 +322,13 @@ def wave_error(got, want, args):
     return err, rel, int(flipped.sum())
 
 
+def ssd_ops(n_blk, bsz, r, kind):
+    """K2's operations: the correlation C = sum(s*w), a multiply and an add
+    per pixel pair; W2 and S2, box sums of squares, are a few operations a
+    window pixel and are left out."""
+    return 2 * n_blk * (2 * r + 1) ** 2 * bsz * bsz, kind
+
+
 def _cases(dev):
     """(kernel name, wrapper name, label, args, operations[, bytes]) at
     the slice's shapes, made from a seed; the wrapper `K.<wrapper name>`
@@ -342,18 +353,19 @@ def _cases(dev):
     nby, nbx = H // 16, W // 16
     B = nby * nbx
 
-    def ssd_ops(n_blk, bsz, r, kind):
-        # subtract, multiply, add per pixel pair
-        return 3 * n_blk * (2 * r + 1) ** 2 * bsz * bsz, kind
-
     # K2 from planes: the full-res (uint8, bsz 16) and half-res (int32 2x2
     # sums, bsz 8) surfaces of a PADR-padded 1080p reference, r 16,
     # ordinary and bright inputs; then grids whose width is no multiple
     # of the kernel's block group and whose addresses are not 16-byte
-    # aligned, and the other dtype at each block size
+    # aligned, and the other dtype at each block size.  The bright inputs
+    # take both branches of the surface's rounding rule (ssd_surface.cu):
+    # uint8 240..255 and int32 350..510 at bsz 8 keep S2, W2 and C below
+    # 2^24 (R(S2 + W2) - 2C), int32 960..1020 at bsz 8 puts S2 and W2
+    # above it (the exact SSD)
     for dtype, bsz, lo, hi in ((np.uint8, 16, 0, 256),
                                (np.uint8, 16, 240, 256),
                                (np.int32, 8, 0, 1021),
+                               (np.int32, 8, 350, 511),
                                (np.int32, 8, 960, 1021)):
         sc = 16 // bsz
         src = t(rng.integers(lo, hi, (H // sc, W // sc)).astype(dtype))
@@ -391,8 +403,8 @@ def _cases(dev):
                   ssd_ops(B, 16, 8, "uint8")))
     # K2 from windows (the entry the Pallas kernels had)
     for bsz, r, lo, hi in ((16, 16, 0, 256), (16, 16, 240, 256),
-                           (8, 16, 0, 1021), (8, 16, 960, 1021),
-                           (16, 8, 0, 256)):
+                           (8, 16, 0, 1021), (8, 16, 350, 511),
+                           (8, 16, 960, 1021), (16, 8, 0, 256)):
         Wn = 2 * r + bsz
         src = t(rng.integers(lo, hi, (B, bsz, bsz)).astype(np.int32))
         win = t(rng.integers(lo, hi, (B, Wn, Wn)).astype(np.int32))
@@ -594,14 +606,14 @@ def _frame_axis_cases(dev, rng):
     cases.append(("ssd_surface", "ssd_surface_plane",
                   f"plane uint8 bsz16 r16 F{nf} B{B}",
                   (src, ref, nby, nbx, 16, 16, PADR - 16, PADR - 16),
-                  (3 * nf * B * 33 ** 2 * 256, "uint8")))
+                  ssd_ops(nf * B, 16, 16, "uint8")))
     src_h = t(rng.integers(0, 1021, (nf, H // 2, W // 2)).astype(np.int32))
     ref_h = t(rng.integers(0, 1021, ((H + 2 * PADR) // 2,
                                      (W + 2 * PADR) // 2)).astype(np.int32))
     cases.append(("ssd_surface", "ssd_surface_plane",
                   f"plane int32 bsz8 r16 F{nf} B{B}",
                   (src_h, ref_h, nby, nbx, 8, 16, PADR // 2 - 16,
-                   PADR // 2 - 16), (3 * nf * B * 33 ** 2 * 64, "int32")))
+                   PADR // 2 - 16), ssd_ops(nf * B, 8, 16, "int32")))
     off = np.array([-1, 0, 1])
     y0 = np.repeat(np.arange(nby), nbx) * 16
     x0 = np.tile(np.arange(nbx), nby) * 16
@@ -752,12 +764,60 @@ def phase_kernels(dev) -> dict:
     return recs
 
 
-def phase_before_after(dev) -> None:
+def parent_ssd_plane(parent: str):
+    """K2's plane entry as the checkout `parent` (a directory holding
+    another commit of the repo) has it: its ssd_surface.cu alone, built
+    with this checkout's nvcc flags into build/torch_kernels/ ->
+    fn(src, ref, nby, nbx, bsz, r, oy, ox) -> (nby*nbx, S, S) float32 of
+    one source plane, launched on the current stream and counted
+    nowhere."""
+    import ctypes
+    import hashlib
+
+    import torch
+
+    from aom_av1_lavish_torch.ops import build
+    from aom_av1_lavish_torch.ops import kernels as K
+
+    cu = os.path.join(parent, CSRC, "ssd_surface.cu")
+    with open(cu, "rb") as f:
+        tag = hashlib.sha256(f.read()).hexdigest()[:16]
+    so = build.BUILD_DIR / f"parent_ssd_surface_{tag}.so"
+    if not so.exists():
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        done = subprocess.run([build._nvcc(), *build.ARCH_FLAGS,
+                               *build.NVCC_FLAGS, "-shared", "-o", str(so),
+                               cu], capture_output=True, text=True)
+        if done.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {cu}:\n"
+                               f"{done.stdout[-2000:]}{done.stderr[-2000:]}")
+    fn = ctypes.CDLL(str(so)).avl_ssd_surface_plane
+    fn.argtypes = K._SIGNATURES["avl_ssd_surface_plane"]
+    fn.restype = ctypes.c_int
+
+    def plane(src, ref, nby, nbx, bsz, r, oy, ox):
+        S = 2 * r + 1
+        out = torch.empty((nby * nbx, S, S), dtype=torch.float32,
+                          device=ref.device)
+        rc = fn(out.data_ptr(), src.data_ptr(), ref.data_ptr(),
+                src.shape[-1], ref.shape[1], nby, nbx, bsz, r, oy, ox,
+                src.element_size(), 1, src.shape[-2] * src.shape[-1],
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{cu}: launch failed with CUDA error {rc}")
+        return out
+    return plane
+
+
+def phase_before_after(dev, parents=()) -> None:
     """The call paths of the earlier slices beside the entries that
     replaced them (the plane forms of K2 and K3, the fused forms of K1 and
     K4), on the same 1080p inputs, timed in turns (before, after, after,
     before) and reported as the mean of each pair, and once each from a
-    CUDA graph (the device's time without the host's)."""
+    CUDA graph (the device's time without the host's).  For each of
+    `parents` (checkouts of other commits), also its K2 plane kernel beside
+    this one at K2's headline shapes, in turns from CUDA graphs, with the
+    number of surface entries in which the two differ."""
     import numpy as np
     import torch
 
@@ -878,6 +938,35 @@ def phase_before_after(dev) -> None:
             f"{graph_ms(after):.4f} ms")
     log(f"K4 wave, before/after: {flipped} block(s) of 68 whose two lowest "
         "costs lie within 1e-6 and whose mode differs")
+    if not parents:
+        log("K2 against an earlier checkout: not run (no --before given)")
+    ref8 = t(rng.integers(0, 256, (H + 16, W + 16)).astype(np.uint8))
+    olds = {p: parent_ssd_plane(p) for p in parents}
+    for parent, label, args in ((p, *case) for p in parents for case in (
+            ("full res, uint8 bsz16 r16", (src, ref, nby, nbx, 16, 16,
+                                           PADR - 16, PADR - 16)),
+            ("half res, int32 bsz8 r16", (src_h, ref_h, nby, nbx, 8, 16,
+                                          PADR // 2 - 16, PADR // 2 - 16)),
+            ("TPL and TF, uint8 bsz16 r8 pad 8", (src, ref8, nby, nbx, 16, 8,
+                                                  0, 0)))):
+        old = olds[parent]
+        a, b = K.ssd_surface_plane(*args), old(*args)
+        torch.cuda.synchronize()
+        differ = int((a != b).sum())
+        err = float((a - b).abs().max())
+        if err > 1.0:
+            raise AssertionError(f"K2 {label}: the other checkout's "
+                                 f"surface differs from this one's by {err}"
+                                 " (the rounding moves an entry by 1 at "
+                                 "most)")
+        b0 = graph_ms(lambda: old(*args))
+        a0 = graph_ms(lambda: K.ssd_surface_plane(*args))
+        a1 = graph_ms(lambda: K.ssd_surface_plane(*args))
+        b1 = graph_ms(lambda: old(*args))
+        log(f"K2 {label} B{B}, from a graph: {parent} {(b0 + b1) / 2:.4f} "
+            f"ms ({b0:.4f}, {b1:.4f}) | this checkout {(a0 + a1) / 2:.4f} "
+            f"ms ({a0:.4f}, {a1:.4f}); {differ} of {a.numel()} entries "
+            f"differ, by at most {err:g}")
 
 
 def kernel_runs(fn):
@@ -1971,6 +2060,22 @@ def first_group_difference(got, want, W_: int,
     return ""
 
 
+def full_range_frames(n: int, w: int, h: int) -> list:
+    """make_frames' clip with each luma plane stretched to 0..255 (its
+    chroma as it is): bright content, where the reference's SSD surface
+    rounds (ROADMAP F1)."""
+    import numpy as np
+
+    from aom_av1_lavish_torch.utils.clips import make_frames
+
+    out = []
+    for y, u, v in make_frames(n, w, h):
+        y = y.astype(np.float64)
+        y = (y - y.min()) * 255.0 / (y.max() - y.min())
+        out.append((np.round(y).astype(np.uint8), u, v))
+    return out
+
+
 #: the 1080p card-against-CPU GOPs: 4 frames, gf_length 4 (a wavefront
 #: KEY, then a group of 3: the hidden ARF as a one-frame chain and two P
 #: frames, chained or as one frame-parallel group)
@@ -2089,19 +2194,22 @@ def phase_card_vs_cpu(dev, tmp) -> None:
         log(f"card vs CPU {w}x{h} {name}: {sum(map(len, got[0]))} bytes in "
             f"{len(got[0])} TUs, equal (card {secs[0]:.3f} s, CPU "
             f"{secs[1]:.3f} s)")
-    cif = make_frames(N_FRAMES, 352, 288)
-    got, secs = timed_pair(dev, lambda d: b"".join(GopEncoder(
-        352, 288, device=d, **KW_CPU8).encode_sequence(cif)))
-    if got[0] != got[1]:
-        at = next((i for i, (x, y) in enumerate(zip(*got)) if x != y),
-                  min(map(len, got)))
-        raise AssertionError(f"352x288 cpu_used 8: the card's stream "
-                             f"({len(got[0])} bytes) differs from the "
-                             f"CPU's ({len(got[1])} bytes), first at byte "
-                             f"{at}")
-    log(f"card vs CPU 352x288 cpu_used 8, {N_FRAMES} frames: "
-        f"{len(got[0])} bytes, equal (card {secs[0]:.3f} s, CPU "
-        f"{secs[1]:.3f} s)")
+    for what, cif in (
+            ("", make_frames(N_FRAMES, 352, 288)),
+            (", luma stretched to 0..255", full_range_frames(N_FRAMES, 352,
+                                                             288))):
+        got, secs = timed_pair(dev, lambda d, cif=cif: b"".join(GopEncoder(
+            352, 288, device=d, **KW_CPU8).encode_sequence(cif)))
+        if got[0] != got[1]:
+            at = next((i for i, (x, y) in enumerate(zip(*got)) if x != y),
+                      min(map(len, got)))
+            raise AssertionError(f"352x288 cpu_used 8{what}: the card's "
+                                 f"stream ({len(got[0])} bytes) differs from"
+                                 f" the CPU's ({len(got[1])} bytes), first "
+                                 f"at byte {at}")
+        log(f"card vs CPU 352x288 cpu_used 8{what}, {N_FRAMES} frames: "
+            f"{len(got[0])} bytes, equal (card {secs[0]:.3f} s, CPU "
+            f"{secs[1]:.3f} s)")
     a = np.stack([s.to_array() for s in first_pass(frames, device=dev)])
     b = np.stack([s.to_array() for s in first_pass(frames, device="cpu")])
     if not np.allclose(a, b, rtol=1e-5, atol=0):
@@ -2120,6 +2228,9 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="run one more default-configuration slice, and one "
                     "with frame-parallel groups, under torch.profiler")
+    ap.add_argument("--before", nargs="+", default=[], metavar="DIR",
+                    help="checkouts of other commits: time each one's K2 "
+                    "plane kernel beside this one's at K2's headline shapes")
     opts = ap.parse_args()
 
     import torch
@@ -2155,7 +2266,7 @@ def main() -> int:
 
     recs = phase_kernels(dev)
     lap("kernel cases")
-    phase_before_after(dev)
+    phase_before_after(dev, opts.before)
     lap("before/after pairs")
     frames = make_frames(N_FRAMES, W, H)
     phase_programs(dev, frames)

@@ -111,13 +111,15 @@ def test_cuda_gop_recon_matches_decoder(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,bsz,radius,lo,hi", [
     (torch.uint8, 16, 16, 0, 256), (torch.uint8, 16, 16, 240, 256),
-    (torch.int32, 8, 16, 0, 1021), (torch.int32, 8, 16, 960, 1021),
+    (torch.int32, 8, 16, 0, 1021), (torch.int32, 8, 16, 350, 511),
+    (torch.int32, 8, 16, 960, 1021),
     (torch.uint8, 8, 5, 0, 256), (torch.int32, 16, 3, 0, 1021)])
 def test_cuda_ssd_surface_plane_matches_plain(cuda_device, dtype, bsz,
                                               radius, lo, hi):
     """K2 from planes on the card, exact: a 7x9 block grid (no multiple of
     the kernel's block group) at an odd window origin, so both the 16-byte
-    and the unaligned staging paths run across the cases."""
+    and the unaligned staging paths run across the cases; int32 350..510
+    and 960..1020 take the two branches of the surface's rounding rule."""
     rng = np.random.default_rng(bsz + radius)
     nby, nbx, oy, ox = 7, 9, 1, 3
     Wn = 2 * radius + bsz

@@ -43,8 +43,8 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _clip(n=N, w=W, h=H):
-    """A textured pan with moving chroma, scaled into 0..90."""
+def _clip(n=N, w=W, h=H, peak=90):
+    """A textured pan with moving chroma, scaled into 0..peak."""
     rng = np.random.default_rng(3)
     yy, xx = np.mgrid[0:h + n * 2, 0:w + n * 2]
     base = (128 + 70 * np.sin(yy / 9.0) * np.cos(xx / 13.0)
@@ -52,7 +52,7 @@ def _clip(n=N, w=W, h=H):
     cb = rng.integers(100, 156, ((h + n * 2) // 2, (w + n * 2) // 2))
 
     def q(a):
-        return np.ascontiguousarray((a * 90 // 255).astype(np.uint8))
+        return np.ascontiguousarray((a * peak // 255).astype(np.uint8))
     return [(q(base[i:i + h, 2 * i:2 * i + w].astype(np.int64)),
              q(cb[i // 2:i // 2 + h // 2, i:i + w // 2]),
              q(255 - cb[i // 2:i // 2 + h // 2, i:i + w // 2]))
@@ -309,6 +309,9 @@ def test_device_rdo_key_raises():
 #            features of cpu_used=7 attached, which on the device path are
 #            read for one thing only: they send the KEY to the wavefront
 #            path, where a 1080p KEY goes by its size.
+#   default_full_range  the same on the clip at its full range (luma up to
+#            255), where the reference's SSD surface rounds S2 + W2 past
+#            2^24 (ROADMAP F1) in the full-pel search, TPL and the filter.
 # Each is applied to both packages alike.
 
 
@@ -329,7 +332,10 @@ TPL_TF = {
     "tpl": (dict(cpu_used=8), _set(enable_tpl=True)),
     "both": (dict(cpu_used=8), _set(enable_tpl=True, enable_tf=True)),
     "default": (dict(), _attach_cpu7),
+    "default_full_range": (dict(), _attach_cpu7),
 }
+#: the clip's peak by configuration (else 90)
+PEAK = {"default_full_range": 255}
 BASE = {k: v for k, v in KW.items() if k != "cpu_used"}
 
 
@@ -360,7 +366,7 @@ def _encode_tools(mp, cls, enc_cls, mod, name, **kw):
     spy_on(mod[1], "tpl_gf_group", "tpl")
     enc = enc_cls(W, H, **BASE, **cfg, **kw)
     post(enc)
-    payloads = enc.encode_sequence(_clip())
+    payloads = enc.encode_sequence(_clip(peak=PEAK.get(name, 90)))
     mp.undo()
     return enc, payloads, calls, seen
 
@@ -399,7 +405,8 @@ def test_tpl_tf_ivf_bytes_match_reference(tool_runs, tmp_path, name):
     assert (enc.enable_tpl, enc.enable_tf) \
         == (ref_enc.enable_tpl, ref_enc.enable_tf) \
         == (name != "tf", name != "tpl")
-    assert enc.motion_modes == ref_enc.motion_modes == (name == "default")
+    assert enc.motion_modes == ref_enc.motion_modes \
+        == name.startswith("default")
     assert len(port_p) == N
     for i, (a, b) in enumerate(zip(port_p, ref_p)):
         assert a == b, f"TU {i} differs"
@@ -442,7 +449,8 @@ def test_tpl_and_tf_change_the_stream(tool_runs):
     assert len({streams["tf"], streams["tpl"], streams["both"]}) == 3
 
 
-@pytest.mark.parametrize("name", ["both", "default"])
+@pytest.mark.parametrize("name", ["both", "default",
+                                  "default_full_range"])
 def test_decoder_reproduces_recon_with_tpl_and_tf(tool_runs, name):
     """The port's own decoder rebuilds every reference slot of the encoder
     from the stream written with TPL and the temporal filter on."""

@@ -50,16 +50,29 @@ def pallas_interpret(monkeypatch):
 
 
 def _ssd_oracle(src, win, bsz, radius):
-    """Direct int64 SSD (tests/test_pallas.py's oracle), as float32."""
+    """The JAX package's surface as its rounding makes it (ROADMAP F1),
+    from S2 = sum(s^2), W2 = sum(w^2) and C = sum(s*w) summed in int64:
+    R(S2 + W2) - 2C in float32 where all three lie below 2^24 (there every
+    float32 partial sum of the reference is an exact integer, whatever its
+    order, and the add S2 + W2 is its one rounding), else the exact SSD
+    converted once (there the reference's value depends on XLA's order of
+    summation)."""
     S = 2 * radius + 1
     B = src.shape[0]
-    out = np.empty((B, S, S), np.int64)
+    out = np.empty((B, S, S), np.float32)
     s64 = src.astype(np.int64)
+    s2 = (s64 * s64).sum((1, 2))
     for dy in range(S):
         for dx in range(S):
-            d = s64 - win[:, dy:dy + bsz, dx:dx + bsz].astype(np.int64)
-            out[:, dy, dx] = (d * d).sum((1, 2))
-    return out.astype(np.float32)
+            w = win[:, dy:dy + bsz, dx:dx + bsz].astype(np.int64)
+            w2 = (w * w).sum((1, 2))
+            c = (s64 * w).sum((1, 2))
+            order_free = np.maximum(np.maximum(s2, w2), c) < (1 << 24)
+            out[:, dy, dx] = np.where(
+                order_free,
+                (s2 + w2).astype(np.float32) - (2 * c).astype(np.float32),
+                (s2 + w2 - 2 * c).astype(np.float32))
+    return out
 
 
 def _ssd_inputs(bsz, radius, lo, hi, B=5, seed=7):
@@ -75,8 +88,9 @@ SSD_SHAPES = [(16, 16), (16, 8), (8, 8), (8, 16)]
 
 @pytest.mark.parametrize("bsz,radius", SSD_SHAPES)
 def test_ssd_surface_matches_int64_oracle_full_range(bsz, radius):
-    """0..255 content, including the bright 240..255 band where the
-    reference's float32 identity is off by one (ROADMAP F1)."""
+    """0..255 content, including the bright 240..255 band where
+    S2 + W2 passes 2^24 and the reference's float32 identity rounds
+    (ROADMAP F1): the port rounds as the oracle says it does."""
     for lo, hi in ((0, 256), (240, 256)):
         src, win = _ssd_inputs(bsz, radius, lo, hi)
         got = K.ssd_surface(torch.from_numpy(src), torch.from_numpy(win),
@@ -96,6 +110,36 @@ def test_ssd_surface_matches_jax_xla(xla_path, bsz, radius):
     want = np.asarray(PK.ssd_surface(jnp.asarray(src), jnp.asarray(win),
                                      bsz, radius))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("bsz,radius,lo,hi", [(16, 16, 240, 256),
+                                               (16, 8, 240, 256),
+                                               (8, 16, 350, 511)])
+def test_ssd_surface_matches_jax_xla_bright(xla_path, bsz, radius, lo, hi):
+    """Bright content, where S2 + W2 passes 2^24 and the reference rounds
+    its float32 sum (ROADMAP F1): full-resolution uint8 pixels 240..255
+    and half-resolution 2x2 sums 350..510, whose S2, W2 and C all stay
+    below 2^24, so the reference's value is order-free and the port's
+    equals it bit for bit."""
+    src, win = _ssd_inputs(bsz, radius, lo, hi)
+    got = K.ssd_surface(torch.from_numpy(src), torch.from_numpy(win), bsz,
+                        radius).numpy()
+    want = np.asarray(PK.ssd_surface(jnp.asarray(src), jnp.asarray(win),
+                                     bsz, radius))
+    np.testing.assert_array_equal(got, want)
+    # the exact SSD would not do: the rounding shows on these inputs
+    assert (got != _exact_ssd(src, win, bsz, radius)).any()
+
+
+def _exact_ssd(src, win, bsz, radius):
+    S = 2 * radius + 1
+    out = np.empty((src.shape[0], S, S), np.int64)
+    s64 = src.astype(np.int64)
+    for dy in range(S):
+        for dx in range(S):
+            d = s64 - win[:, dy:dy + bsz, dx:dx + bsz].astype(np.int64)
+            out[:, dy, dx] = (d * d).sum((1, 2))
+    return out.astype(np.float32)
 
 
 @pytest.mark.parametrize("bsz,radius", [(16, 8), (8, 8)])
@@ -132,8 +176,12 @@ def test_ssd_surface_plane_matches_jax_on_reference_windows(xla_path, bsz,
     at the search's radius 16: full res (uint8 pixels <= 90) and half res
     (int32 2x2 sums <= 320), where the reference's float32 sums are exact
     integers."""
+    _plane_matches_jax(bsz, dtype, 0, hi)
+
+
+def _plane_matches_jax(bsz, dtype, lo, hi):
     r, nby, nbx = 16, 3, 5
-    src, ref = _ssd_planes(bsz, r, nby, nbx, 0, hi, dtype)
+    src, ref = _ssd_planes(bsz, r, nby, nbx, lo, hi, dtype)
     got = K.ssd_surface_plane(torch.from_numpy(src), torch.from_numpy(ref),
                               nby, nbx, bsz, r, 3, 3)
     assert got.dtype == torch.float32
@@ -146,6 +194,17 @@ def test_ssd_surface_plane_matches_jax_on_reference_windows(xla_path, bsz,
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("bsz,dtype,lo,hi", [(16, np.uint8, 240, 256),
+                                             (8, np.int32, 350, 511)])
+def test_ssd_surface_plane_matches_jax_on_bright_reference_windows(
+        xla_path, bsz, dtype, lo, hi):
+    """The plane form against the JAX ssd_surface on bright content, as
+    test_ssd_surface_plane_matches_jax_on_reference_windows cuts it: the
+    reference rounds S2 + W2 there, order-free, and the port rounds as it
+    does (ROADMAP F1)."""
+    _plane_matches_jax(bsz, dtype, lo, hi)
+
+
 @pytest.mark.parametrize("bsz,dtype,lo,hi", [(16, np.uint8, 0, 256),
                                              (16, np.uint8, 240, 256),
                                              (8, np.int32, 0, 1021),
@@ -155,8 +214,10 @@ def test_ssd_surface_plane_matches_jax_on_reference_windows(xla_path, bsz,
 def test_ssd_surface_plane_matches_int64_oracle_full_range(bsz, dtype, lo,
                                                            hi):
     """Full-range and bright content (0..255 at full res, 0..1020 at half
-    res) against the direct int64 SSD on windows cut with numpy (ROADMAP
-    F1: the JAX float32 identity is off by one there)."""
+    res) against the oracle of the reference's rounding on windows cut
+    with numpy (ROADMAP F1).  At 960..1020 every S2 and W2 of a bsz-8
+    block is at least 64 * 960^2 > 2^24, so each entry there is the exact
+    SSD: the reference's own value depends on XLA's order of summation."""
     r, nby, nbx = 16, 2, 3
     src, ref = _ssd_planes(bsz, r, nby, nbx, lo, hi, dtype)
     got = K.ssd_surface_plane(torch.from_numpy(src), torch.from_numpy(ref),
