@@ -13,7 +13,9 @@ of named sections:
 
 Sections nest; disabled (default) the context manager costs one
 attribute check.  Device work should be timed around synchronize
-points by the caller (CUDA launches are asynchronous).
+points by the caller (CUDA launches are asynchronous).  An enabled
+section is also a torch.profiler range of the same name, which puts it on
+the timeline of the device's kernels.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from __future__ import annotations
 import time
 from collections import defaultdict
 from contextlib import contextmanager
+
+import torch
 
 _ENABLED = False
 _TIMES: dict = defaultdict(float)
@@ -44,7 +48,8 @@ def profile(name: str):
         return
     t0 = time.perf_counter()
     try:
-        yield
+        with torch.profiler.record_function(name):
+            yield
     finally:
         _TIMES[name] += time.perf_counter() - t0
         _COUNTS[name] += 1

@@ -39,7 +39,11 @@
    repo's default (TPL and the ARF temporal filter on), each with the
    launch counters reset just before it; every kernel must have launched
    during each, and TPL and the filter must have gone through the plane
-   form of K2 and the gather form of K1 only.
+   form of K2 and the gather form of K1 only.  Then bench_torch.py's main
+   cell (the same default-configuration encode through encode_gop_ivf) runs
+   once, its cold run and one warm run, through bench_torch's runner: the
+   same bytes in both, its launches equal to EXPECTED["default"], its
+   stream decoded; its record is printed.
 4. Encodes both configurations at a smaller size (352x288 at cpu_used 8;
    768x576 for the default, the smallest 4:3 size whose KEY takes the
    wavefront path as it does at 1080p) and decodes the streams with the
@@ -78,8 +82,9 @@ With --warm N each configuration's slice is run N more times and the
 stage medians are printed (and N runs of the default configuration with
 frame-parallel groups); with --profile one more default-configuration
 slice and one with frame-parallel groups run under torch.profiler and the
-device time of each hand kernel, the other kernels' runs and the
-device-busy share are printed.
+device time of each hand kernel, the other kernels' runs, the device-busy
+share and the longest idle stretches are printed.  The timing of these
+runs is bench_torch.py's (timed_run, warm_runs, profiled_run).
 
 Only the port is imported: jax and the JAX package are blocked.  Prints the
 card's name and power limit, one JSON line with each kernel's record, and
@@ -93,22 +98,21 @@ import argparse
 import contextlib
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
 import time
 
+from bench_torch import (CELLS, EXPECTED, KW_CPU8, KW_DEFAULT, KW_FPMT, MAIN,
+                         N_FRAMES, QINDEX, H, W, gpu_line, instances_of,
+                         profiled_run, run_cell, run_slice, summarize,
+                         timed_run, warm_runs)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
-W, H, N_FRAMES, QINDEX = 1920, 1088, 8, 120
 #: the largest frame whose KEY takes the device RDO, padded to the 64-pixel
 #: superblock as the trial engine pads it
 RDO_W, RDO_H = 768, 576
 PADR = 64
-KW_DEFAULT = dict(qindex=QINDEX, gf_length=8, use_tpu=True,
-                  enable_cdef=False)
-KW_CPU8 = dict(KW_DEFAULT, cpu_used=8)
-KW_FPMT = dict(KW_DEFAULT, frame_parallel=True)
 #: P frames in the frame-parallel group of the 8-frame GOP (KEY, ARF, 6 P)
 FPMT_FRAMES = 6
 PK = "aom_av1_lavish_tpu/ops/pallas_kernels.py"
@@ -132,14 +136,6 @@ KERNELS = {
     "wave_encode": (f"{CSRC}/wave_encode.cu", f"{PK}:343",
                     "quantize_b_vec", "avl_wave_encode"),
 }
-#: the device function(s) of each kernel, as a profiler names them
-DEVICE_FUNCS = {
-    "gather_windows": ("gather_windows_kernel", "gather_flat_kernel",
-                       "block_ssd_at_kernel"),
-    "ssd_surface": ("ssd_plane_kernel", "ssd_surface_kernel"),
-    "convolve_8tap": ("conv8_plane_kernel", "convolve_8tap_kernel"),
-    "quantize_b_vec": ("quantize_b_kernel", "wave_encode_kernel"),
-}
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): device
 # memory rate, and operations per second by operand type.  int32 is not in
 # the data sheet; it runs on the CUDA cores, so it gets their float32 rate,
@@ -150,14 +146,6 @@ OPS_PER_S = {"uint8": 1979e12, "int32": 67e12}
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def gpu_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -1131,51 +1119,6 @@ def phase_programs(dev, frames) -> None:
                 f"capture; replays {cap.replays}")
 
 
-def run_slice(dev, frames, kw):
-    """One 1080p slice in configuration `kw` -> (encoder, payloads,
-    seconds, launches by kernel and by C entry, stage seconds), the launch
-    counters set to 0 just before it."""
-    import torch
-
-    from aom_av1_lavish_torch.encoder.gop import TorchGopEncoder
-    from aom_av1_lavish_torch.ops import kernels as K
-    from aom_av1_lavish_torch.utils import profiler
-
-    profiler.enable()
-    profiler.reset()
-    torch.cuda.synchronize()
-    K.reset_launches()
-    t0 = time.perf_counter()
-    enc = TorchGopEncoder(W, H, device=dev, **kw)
-    payloads = enc.encode_sequence(frames)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES, **K.ENTRY_LAUNCHES)
-    stages = profiler.times()
-    profiler.enable(False)
-    return enc, payloads, secs, launches, stages
-
-
-#: launches of one 1080p slice (a KEY and one GF group of 7) that the
-#: slice's structure fixes: per (frame, reference) of the ARF and the six P
-#: frames (1 + 6 * 2 = 13) two K2 surfaces and one fused K1 refine; with TPL
-#: and the filter on, 12 TPL pairs and 2 filter neighbours more of K2 and
-#: 2 neighbours x 3 planes of K1's gather form
-EXPECTED = {
-    "cpu_used 8": {"ssd_surface": 26, "gather_windows": 13,
-                   "avl_block_ssd_at": 13, "avl_gather_windows": 0,
-                   "avl_ssd_surface": 0},
-    "default": {"ssd_surface": 26 + 14, "gather_windows": 13 + 6,
-                "avl_block_ssd_at": 13, "avl_gather_windows": 6,
-                "avl_ssd_surface": 0},
-}
-#: K4 in either slice: one fused launch a wave of the KEY (187 waves at
-#: 1080p) and 9 quantize_b_vec launches for each of the 7 chained frames
-for _exp in EXPECTED.values():
-    _exp.update({"avl_wave_encode": 187, "avl_quantize_b": 63,
-                 "quantize_b_vec": 250})
-
-
 def phase_slice(dev, frames, label, kw) -> dict:
     """The 1080p slice in configuration `kw` with the launch counters
     reset just before it; returns the launch counts."""
@@ -1183,7 +1126,7 @@ def phase_slice(dev, frames, label, kw) -> dict:
 
     from aom_av1_lavish_torch.ops import kernels as K
 
-    enc, payloads, secs, launches, stages = run_slice(dev, frames, kw)
+    enc, payloads, secs, launches, stages = run_slice(dev, frames, kw, W, H)
     if len(payloads) != N_FRAMES or not all(payloads):
         raise AssertionError(f"expected {N_FRAMES} non-empty TUs, got "
                              f"{[len(p) for p in payloads]}")
@@ -1224,27 +1167,24 @@ def phase_slice(dev, frames, label, kw) -> dict:
 
 
 def phase_warm(dev, frames, label, kw, n: int) -> None:
-    """n more runs of the slice in configuration `kw`: median, minimum and
-    maximum of the total and of each GOP stage, and the peak device
-    memory."""
+    """n more runs of the slice in configuration `kw` (bench_torch's warm
+    runs): median, minimum and maximum of the total and of each GOP stage,
+    and the peak device memory."""
     import torch
 
+    from aom_av1_lavish_torch.encoder.gop import TorchGopEncoder
+
     torch.cuda.reset_peak_memory_stats()
-    totals, per_stage = [], {}
-    for _ in range(n):
-        _, _, secs, _, stages = run_slice(dev, frames, kw)
-        totals.append(secs)
-        for k, v in stages.items():
-            if k.startswith(("gop/", "key/")):
-                per_stage.setdefault(k, []).append(v)
-    med = statistics.median(totals)
+    runs = warm_runs(lambda: TorchGopEncoder(W, H, device=dev, **kw)
+                     .encode_sequence(frames), n, dev)
+    rec = summarize(runs)
+    med = rec["median_s"]
     log(f"warm slice {label} n={n}: median {med:.3f} s (min "
-        f"{min(totals):.3f}, max "
-        f"{max(totals):.3f}), {N_FRAMES / med:.4f} frames/s; runs "
-        f"{[round(x, 3) for x in totals]}")
-    for k, v in sorted(per_stage.items(),
-                       key=lambda kv: -statistics.median(kv[1])):
-        m = statistics.median(v)
+        f"{rec['min_s']:.3f}, max {rec['max_s']:.3f}, spread "
+        f"{rec['spread']:.3f}), {N_FRAMES / med:.4f} frames/s; runs "
+        f"{[round(x, 3) for x in rec['runs_s']]}")
+    for k, m in rec["stages_s"].items():
+        v = [r.stages[k] for r in runs if k in r.stages]
         log(f"  warm stage {k:<20} median {m:7.3f} s (min {min(v):.3f}, max "
             f"{max(v):.3f}), {100 * m / med:.0f}% of the median total")
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f}"
@@ -1253,52 +1193,35 @@ def phase_warm(dev, frames, label, kw, n: int) -> None:
 
 
 def phase_profile(dev, frames, label, kw) -> None:
-    """One slice in configuration `kw` under torch.profiler: device time
-    of each hand kernel, of everything else, and the device-busy share of
-    the wall clock."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """One slice in configuration `kw` under torch.profiler (bench_torch's
+    profiled run): device time of each hand kernel, of everything else,
+    the device-busy share of the wall clock and the longest idle
+    stretches."""
+    from aom_av1_lavish_torch.encoder.gop import TorchGopEncoder
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, _, secs, launches, _ = run_slice(dev, frames, kw)
-    hand = {name: [0.0, 0] for name in DEVICE_FUNCS}
-    other_us, other_n, copies_us = 0.0, 0, 0.0
-    for ev in prof.key_averages():
-        # device-side events only: a host-side operator event repeats the
-        # time of the kernels it launched
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
-        if not us:
-            continue
-        for name, funcs in DEVICE_FUNCS.items():
-            if any(f in ev.key for f in funcs):
-                hand[name][0] += us
-                hand[name][1] += ev.count
-                break
-        else:
-            if "memcpy" in ev.key.lower() or "memset" in ev.key.lower():
-                copies_us += us
-            else:
-                other_us += us
-                other_n += ev.count
-    hand_us = sum(v[0] for v in hand.values())
-    total_us = hand_us + other_us + copies_us
-    if total_us <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    log(f"profiled slice {label}: {secs:.3f} s wall clock under the "
-        f"profiler, "
-        f"{total_us / 1e3:.2f} ms of device time "
-        f"({100 * total_us / 1e6 / secs:.1f}% of that wall clock)")
-    for name, (us, n) in hand.items():
-        log(f"  device {name:<15} {us / 1e3:8.3f} ms in {n} kernel runs "
-            f"({launches[name]} launches counted)")
-    log(f"  device hand kernels together {hand_us / 1e3:.3f} ms; other "
-        f"kernels {other_us / 1e3:.2f} ms in {other_n} runs; memcpy/memset "
-        f"{copies_us / 1e3:.2f} ms")
+    run, dev_rec = profiled_run(lambda: TorchGopEncoder(
+        W, H, device=dev, **kw).encode_sequence(frames), dev)
+    log(f"profiled slice {label}: {run.seconds:.3f} s wall clock under the "
+        f"profiler, {dev_rec['kernel_ms']:.2f} ms of device kernels "
+        f"({100 * dev_rec['device_busy']:.1f}% of that wall clock)")
+    hand_ms = 0.0
+    for name, v in dev_rec["hand_ms"].items():
+        hand_ms += v["ms"]
+        log(f"  device {name:<15} {v['ms']:8.3f} ms in {v['runs']} kernel "
+            f"runs ({run.launches[name]} launches counted)")
+    log(f"  device hand kernels together {hand_ms:.3f} ms; other kernels "
+        f"{dev_rec['other_kernels']['ms']:.2f} ms in "
+        f"{dev_rec['other_kernels']['runs']} runs; memcpy/memset "
+        f"{dev_rec['memcpy_memset']['ms']:.2f} ms")
+    for g in dev_rec["idle_gaps"][:3]:
+        log(f"  idle {g['ms']:.3f} ms at {g['at_ms']:.3f} ms in "
+            f"{g['section']}")
+
+
+def phase_bench(dev) -> None:
+    """bench_torch's main cell once: its cold run and one warm run, the
+    launches checked against EXPECTED["default"], the stream decoded."""
+    log(json.dumps(run_cell(CELLS[MAIN], device=dev, warm=1)))
 
 
 def phase_decode(dev, frames, w, h, label, kw) -> None:
@@ -1334,32 +1257,6 @@ def phase_decode(dev, frames, w, h, label, kw) -> None:
 
 # ---------------------------------------------------------------------------
 # the other device paths
-
-
-@contextlib.contextmanager
-def instances_of(cls, method: str, seconds=None):
-    """Collects the instances of `cls` on which `method` is called while
-    the block runs (the encoders an entry point builds inside itself),
-    and each call's host seconds into `seconds` when given (for a method
-    that returns with its results on the host)."""
-    seen = []
-    orig = getattr(cls, method)
-
-    def spy(self, *a, **k):
-        if not any(self is s for s in seen):
-            seen.append(self)
-        t0 = time.perf_counter()
-        try:
-            return orig(self, *a, **k)
-        finally:
-            if seconds is not None:
-                seconds.append(time.perf_counter() - t0)
-
-    setattr(cls, method, spy)
-    try:
-        yield seen
-    finally:
-        setattr(cls, method, orig)
 
 
 def read_payloads(path):
@@ -1410,21 +1307,8 @@ def timed_path(label, fn, expected=None, need=()):
     must have launched -> (fn's result, seconds, launches)."""
     import torch
 
-    from aom_av1_lavish_torch.ops import kernels as K
-    from aom_av1_lavish_torch.utils import profiler
-
-    profiler.enable()
-    profiler.reset()
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    K.reset_launches()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES, **K.ENTRY_LAUNCHES)
-    stages = profiler.times()
-    profiler.enable(False)
+    out, secs, launches, stages = timed_run(fn)
     missing = [k for k in need if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"{label}: kernels not launched: {missing}")
@@ -2274,6 +2158,8 @@ def main() -> int:
     launches8 = phase_slice(dev, frames, "cpu_used 8", KW_CPU8)
     launches = phase_slice(dev, frames, "default", KW_DEFAULT)
     lap("slices")
+    phase_bench(dev)
+    lap("bench_torch main cell")
     if opts.warm:
         phase_warm(dev, frames, "cpu_used 8", KW_CPU8, opts.warm)
         phase_warm(dev, frames, "default", KW_DEFAULT, opts.warm)
