@@ -23,9 +23,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-#: flags of single sources: wave_encode.cu takes float32 decisions that must
-#: round as separate multiplies and adds do, so nvcc may fuse none of them
-SOURCE_FLAGS = {"wave_encode.cu": ("-fmad=false",)}
+#: flags of single sources: wave_encode.cu and code_residual.cu take float32
+#: decisions that must round as separate multiplies and adds do, so nvcc may
+#: fuse none of them
+SOURCE_FLAGS = {"wave_encode.cu": ("-fmad=false",),
+                "code_residual.cu": ("-fmad=false",)}
 
 
 def sources() -> list[Path]:

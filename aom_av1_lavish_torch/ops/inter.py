@@ -46,17 +46,14 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..bitstream import constants as c
-from ..bitstream import tables
-from ..common import coeffs as CF
 from ..common import interpred as IP
 from ..common import quant as Q
 
 from .deblock import deblock_leafmask
 from .graphs import program
-from .kernels import (block_ssd_at, convolve_8tap_plane, ssd_surface_plane,
-                      stride_windows)
-from .txfm import fwd_txfm2d_batched, inv_txfm2d_add_batched
-from .wavefront import est_bits, log2_f32, pq_array, quantize
+from .kernels import (block_ssd_at, code_residual, convolve_8tap_plane,
+                      ssd_surface_plane, stride_windows)
+from .wavefront import pq_array
 
 PADR = 64          # device ref padding (>= clamp overshoot + taps)
 FULLPEL_RADIUS = 16
@@ -69,8 +66,6 @@ FILT_BANKS = np.stack([np.asarray(IP.SUBPEL_FILTERS_8),
 #: per-leaf mode/MV overhead (bits) for the merge DP, and the split rate
 OH16, OH32, OH64 = 8.0, 9.0, 10.0
 R_SPLIT = 1.0
-#: pixel-SSE per dq^2 of one coefficient, per tx size (TX_8X8..TX_64X64)
-_TX_SSE_K = {1: 0.0163, 2: 0.0182, 3: 0.0734, 4: 0.2914}
 _INT32_MAX = 2 ** 31 - 1
 
 
@@ -87,20 +82,13 @@ def split_recon(rec, H, W):
 
 
 class _Tables:
-    """Per-device constant tables: scan orders, their inverses, DC masks,
-    the filter banks and the full-pel refine's 3x3 offsets (row, column of
-    each of its nine candidates), so that no step of a P frame copies from
-    the host."""
+    """Per-device constant tables: the filter banks and the full-pel
+    refine's 3x3 offsets (row, column of each of its nine candidates), so
+    that no step of a P frame copies from the host."""
 
     def __init__(self, device):
         def t(a, dtype=torch.int64):
             return torch.tensor(np.asarray(a), dtype=dtype, device=device)
-        self.scan = {tx: t(tables.scan(tx, c.DCT_DCT))
-                     for tx in (c.TX_8X8, c.TX_16X16, c.TX_32X32,
-                                c.TX_64X64)}
-        self.iscan = {tx: torch.argsort(s) for tx, s in self.scan.items()}
-        self.dc = {n: torch.arange(n, device=device) == 0
-                   for n in (64, 256, 1024)}
         self.banks = t(FILT_BANKS, torch.int32)
         off = t([-1, 0, 1])
         self.off9_r = off.repeat_interleave(3)
@@ -110,11 +98,6 @@ class _Tables:
 @lru_cache(maxsize=None)
 def _tables(device: torch.device) -> _Tables:
     return _Tables(device)
-
-
-def _tx_n(tx):
-    """Coefficients per transform block (64x64 keeps its 32x32 corner)."""
-    return min(c.TX_WIDTH[tx], 32) * min(c.TX_HEIGHT[tx], 32)
 
 
 def _mc_block(refp, x0, y0, bw, bh, mv_r_q4, mv_c_q4, fsel=0):
@@ -312,51 +295,19 @@ def _subpel_refine(sy_blk, refp_y, y0, x0, bsz, best_dy, best_dx, W, H,
     return mv_r, mv_c, best_pred, best_cost
 
 
-def _rd_dropout(qc, dqc, scan, inv_scan, lam, tx_size, rbits=1.0):
-    """Trellis-lite tail dropout: cut the scan tail where the suffix sum
-    of (K*dq^2 - lam*bits) over dropped nonzeros is most negative (lam: a
-    scalar, or each block's (B,)).  With AVL_NO_DROPOUT set in the
-    environment (read at each call) nothing is dropped."""
-    if os.environ.get("AVL_NO_DROPOUT"):
-        return qc, dqc
-    K = _TX_SSE_K.get(int(tx_size), 0.02)
-    qs = qc.index_select(-1, scan)
-    ds = dqc.index_select(-1, scan).to(torch.float32)
-    n = qs.shape[-1]
-    idx = torch.arange(n, device=qc.device)
-    nz = qs != 0
-    marked = torch.where(nz, idx, -1)
-    prev_incl = torch.cummax(marked, dim=-1).values
-    prev_excl = torch.cat([torch.full_like(prev_incl[..., :1], -1),
-                           prev_incl[..., :-1]], -1)
-    gap = (idx - prev_excl - 1).to(torch.float32)
-    lvl_bits = 1.7 + 2.0 * log2_f32(qs.abs().to(torch.float32) + 1.0)
-    save = torch.where(nz, rbits + lvl_bits + 0.55 * gap, 0.0)
-    cost = torch.where(nz, K * ds * ds, 0.0)
-    if isinstance(lam, torch.Tensor) and lam.dim():
-        lam = lam[:, None]
-    net = cost - lam * save
-    suffix = net.flip(-1).cumsum(-1).flip(-1)
-    best, at = suffix.min(-1, keepdim=True)
-    cut = torch.where(best < 0, at, n)
-    mask = (idx < cut).index_select(-1, inv_scan)
-    return qc * mask, dqc * mask
+def _dropout() -> bool:
+    """Whether residual coding cuts scan tails: not with AVL_NO_DROPOUT set
+    in the environment, read at each call (on the card when a program is
+    captured, as the reference reads it when it traces)."""
+    return not os.environ.get("AVL_NO_DROPOUT")
 
 
-def _code_residual(src, pred, tx, pq, lam, tabs):
-    """Transform, quantize (K4), drop the tail and reconstruct one plane's
+def _code_residual(src, pred, tx, pq, lam):
+    """Transform, quantize, drop the tail and reconstruct one plane's
     blocks, every frame's in turn, at each frame's quantizer pq (F, 5, 2)
-    and each block's lam (B,) -> (qcoeff, eob, recon, bits)."""
-    resid = src - pred.to(torch.int32)
-    coeff = fwd_txfm2d_batched(resid, tx, c.DCT_DCT)
-    q, dq = (t.reshape(coeff.shape) for t in quantize(
-        coeff.reshape(pq.shape[0], -1, coeff.shape[-1]), pq,
-        CF._tx_scale(tx), tabs.dc[_tx_n(tx)]))
-    q, dq = _rd_dropout(q, dq, tabs.scan[tx], tabs.iscan[tx], lam, tx)
-    bits, eob = est_bits(q, tabs.scan[tx])
-    rec = inv_txfm2d_add_batched(dq, pred, tx, c.DCT_DCT)
-    rec = torch.where((eob > 0)[:, None, None], rec, pred)
-    return q, eob, rec, bits
+    and each block's lam (B,) -> (qcoeff, eob, recon, bits): one launch of
+    K4's fused entry (kernels.code_residual) on the card."""
+    return code_residual(src, pred, tx, pq, lam, _dropout())
 
 
 def _rd_skip(src_y, pred_y, coded, lam):
@@ -382,7 +333,7 @@ def _rd_skip(src_y, pred_y, coded, lam):
 
 def _eval_merge_level(src_y, src_u, src_v, y0m, x0m, cand_r, cand_c,
                       cand_ref, bsz, refs_y, refs_u, refs_v, W, H, pq_y,
-                      pq_u, pq_v, lam, tx_y, tx_uv, fsel, tabs):
+                      pq_u, pq_v, lam, tx_y, tx_uv, fsel):
     """RD-code one merged partition level (bsz in {32, 64}) for all its
     blocks, every frame's in turn: pick the best MV among the children's
     candidates, motion compensate at bsz under each frame's filter fsel,
@@ -410,7 +361,7 @@ def _eval_merge_level(src_y, src_u, src_v, y0m, x0m, cand_r, cand_c,
                     torch.where(lt[:, None, None], pk, best[4]))
     _, mv_r, mv_c, ref, pred_y = best
 
-    coded = [_code_residual(src_y, pred_y, tx_y, pq_y, lam, tabs)
+    coded = [_code_residual(src_y, pred_y, tx_y, pq_y, lam)
              + (src_y, pred_y)]
     crc, ccc = _clamp_mv(mv_r, mv_c, csz, csz, 1, 1, x0m, y0m, W, H, bsz,
                          bsz)
@@ -418,7 +369,7 @@ def _eval_merge_level(src_y, src_u, src_v, y0m, x0m, cand_r, cand_c,
                                 (src_v, refs_v, pq_v)):
         pred = _mc_refs(refs_p, x0m >> 1, y0m >> 1, csz, crc, ccc, ref,
                         fsel)
-        coded.append(_code_residual(src_p, pred, tx_uv, pq_p, lam, tabs)
+        coded.append(_code_residual(src_p, pred, tx_uv, pq_p, lam)
                      + (src_p, pred))
     out, d_tot, r_tot = _rd_skip(src_y, pred_y, coded, lam)
     (qy, eob_y, rec_y), (qu, eob_u, rec_u), (qv, eob_v, rec_v) = out
@@ -486,7 +437,6 @@ def p_frame(src_y, src_u, src_v, refs_y, refs_u, refs_v, refs_y2, pq_y,
                       interp, merge)
         return {k: v[0] for k, v in out.items()}
     dev = src_y.device
-    tabs = _tables(dev)
     nf, H, W = src_y.shape
     n_refs = len(refs_y)
     nby, nbx = H // 16, W // 16
@@ -586,7 +536,7 @@ def p_frame(src_y, src_u, src_v, refs_y, refs_u, refs_v, refs_y2, pq_y,
                                       torch.arange(N, device=dev)]
 
     # --- final residual coding + RD skip ---
-    coded = [_code_residual(sy_blk, pred_y, c.TX_16X16, pq_y, lam_b, tabs)
+    coded = [_code_residual(sy_blk, pred_y, c.TX_16X16, pq_y, lam_b)
              + (sy_blk, pred_y)]
     crc, ccc = _clamp_mv(mv_r, mv_c, 8, 8, 1, 1, x0, y0, W, H, 16, 16)
     for src_p, refs_p, pq_p in ((src_u, refs_u, pq_u),
@@ -594,8 +544,8 @@ def p_frame(src_y, src_u, src_v, refs_y, refs_u, refs_v, refs_y2, pq_y,
         sc_blk = _tiles(src_p, 8, nby, nbx)
         pred = _mc_refs(refs_p, x0 >> 1, y0 >> 1, 8, crc, ccc, best_ref,
                         fsel)
-        coded.append(_code_residual(sc_blk, pred, c.TX_8X8, pq_p, lam_b,
-                                    tabs) + (sc_blk, pred))
+        coded.append(_code_residual(sc_blk, pred, c.TX_8X8, pq_p, lam_b)
+                     + (sc_blk, pred))
     out16, d16f, r16f = _rd_skip(sy_blk, pred_y, coded, lam_b)
     (qy, eob_y, rec_y), (qu, eob_u, rec_u), (qv, eob_v, rec_v) = out16
     r16 = _rows(torch.stack([mv_r, mv_c, best_ref, eob_y, eob_u, eob_v],
@@ -631,7 +581,7 @@ def p_frame(src_y, src_u, src_v, refs_y, refs_u, refs_v, refs_y2, pq_y,
             _tiles(src_y, bsz, n1, n2), _tiles(src_u, bsz // 2, n1, n2),
             _tiles(src_v, bsz // 2, n1, n2), y0m, x0m, *cand, bsz,
             refs_y, refs_u, refs_v, W, H, pq_y, pq_u, pq_v, lam_m, tx_y,
-            tx_uv, fsel, tabs)
+            tx_uv, fsel)
         split = _qgrid(child[3], n1, n2).sum(1) + lam_m * R_SPLIT
         cost_n = dm + lam_m * (rm + oh)
         part = cost_n < split

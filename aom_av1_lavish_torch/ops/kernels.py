@@ -12,8 +12,11 @@ C++ kernel in ops/csrc/, built by ops/build.py and called through ctypes:
                                                with its producer and its
                                                consumers in a wave of the
                                                wavefront KEY)
+     code_residual  — csrc/code_residual.cu   (the same twin with the
+                                               residual coding of a P
+                                               frame's plane around it)
 
-Every kernel has two entries.  ssd_surface and convolve_8tap take
+Every kernel has two entries or more.  ssd_surface and convolve_8tap take
 the windows and regions the Pallas kernels took; ssd_surface_plane and
 convolve_8tap_plane take the padded reference plane and cut the windows
 and regions themselves, inside the kernel, which is what the motion search
@@ -23,8 +26,10 @@ refine calls, reads them and returns only each block's SSD at each of its
 candidate origins.  quantize_b_vec quantizes rows of coefficients;
 wave_encode, which the wavefront KEY calls, codes one whole wave of 16x16
 blocks in one launch (edges, predictions, transforms, the quantizer, rate
-estimate, inverse, mode decision, outputs).  Both entries of a kernel count
-under its one name.
+estimate, inverse, mode decision, outputs); code_residual, which the P
+frames call, codes one plane's blocks at one transform size in one launch
+(residual, forward DCT, quantizer, tail dropout, rate estimate, inverse,
+recon).  All entries of a kernel count under its one name.
 
 Beside each wrapper sits its plain PyTorch version (integer math, no
 convolution library), which takes the same tensors on any device.  A
@@ -47,9 +52,12 @@ import torch
 
 from ..bitstream import constants as c
 from ..bitstream import tables
+from ..common import coeffs as CF
 from ..common import txfm1d as T1
 from ..common import txfm2d as T2
 from ..common.intra import SMOOTH_WEIGHTS
+
+from .txfm import fwd_txfm2d_batched, inv_txfm2d_add_batched
 
 LAUNCHES = {"gather_windows": 0, "ssd_surface": 0, "convolve_8tap": 0,
             "quantize_b_vec": 0}
@@ -75,6 +83,8 @@ _SIGNATURES = {
                        _INT, _LL, _VP],
     "avl_wave_encode": [_VP] * 11 + [_INT] * 6
     + [ctypes.c_float, ctypes.c_float, _VP],
+    "avl_code_residual": [_VP] * 5 + [_INT] + [_VP] * 4 + [_INT] * 4
+    + [ctypes.c_float, ctypes.c_float, _INT, _VP],
 }
 _lib = None
 
@@ -685,3 +695,186 @@ def wave_encode(rows, ry, ru, rv, src_y, src_u, src_v, order, start: int,
             pq.data_ptr(), tab.data_ptr(), tab.numel(), int(start),
             int(count), N, H, W, float(lam), INV_LN2)
     return costs
+
+
+# ---------------------------------------------------------------------------
+# K4, fused entry: the residual coding of a P frame's plane
+
+#: pixel-SSE per dq^2 of one coefficient, per tx size (TX_8X8..TX_64X64)
+TX_SSE_K = {c.TX_8X8: 0.0163, c.TX_16X16: 0.0182, c.TX_32X32: 0.0734,
+            c.TX_64X64: 0.2914}
+#: the transform sizes code_residual takes, with their side
+RESIDUAL_TX = {c.TX_8X8: 8, c.TX_16X16: 16, c.TX_32X32: 32, c.TX_64X64: 64}
+#: the fields of a size's parameter row in residual_tables(): where its
+#: stage tables and scan start, the forward cos bits (col, row), the forward
+#: shifts, the inverse shifts, the stages of the forward and of the inverse,
+#: the quantizer's log scale and the coefficients kept a block
+RESIDUAL_PARAM_FIELDS = ("fdct_col", "fdct_row", "idct", "scan", "cos_col",
+                         "cos_row", "fwd_shift0", "fwd_shift1", "fwd_shift2",
+                         "inv_shift0", "inv_shift1", "fwd_stages",
+                         "inv_stages", "log_scale", "n_coef")
+#: where each part of residual_tables() starts: a parameter row of 16 int32
+#: for each of n 8, 16, 32, 64 (row s for n = 8 << s; csrc/code_residual.cu
+#: reads every other offset from it), then per n the stage tables
+#: [stage][position][kind, src0, src1, w0, w1] of the forward DCT at the
+#: column and at the row cos bit and of the inverse, and the scan
+RESIDUAL_TABLE_OFFSETS = {
+    "params": 0,
+    "fdct8_col": 64, "fdct8_row": 264, "idct8": 464, "scan8": 664,
+    "fdct16_col": 728, "fdct16_row": 1288, "idct16": 1848, "scan16": 2408,
+    "fdct32_col": 2664, "fdct32_row": 4104, "idct32": 5544, "scan32": 6984,
+    "fdct64_col": 8008, "fdct64_row": 11528, "idct64": 15048,
+    "scan64": 18568, "total": 19592}
+
+
+@lru_cache(maxsize=None)
+def residual_tables() -> np.ndarray:
+    """Everything constant that the residual kernel reads, as one int32
+    array laid out by RESIDUAL_TABLE_OFFSETS.  The stage tables are those
+    of common/txfm1d.py at the cos bits of common/txfm2d.py, as ops/txfm.py
+    runs them.  The scans are given as positions of the kernel's
+    coefficient layout: a block of side n keeps the coefficient of raster
+    index c * s + r (s = min(n, 32), the side of what the block keeps) at
+    position r * n + c."""
+    off = RESIDUAL_TABLE_OFFSETS
+    out = np.zeros(off["total"], np.int32)
+
+    def put(key, values):
+        a = np.asarray(values, np.int64).reshape(-1)
+        o = off[key]
+        out[o:o + a.size] = a
+
+    for s, (tx, n) in enumerate(RESIDUAL_TX.items()):
+        idx = n.bit_length() - 3
+        cb_col = T2._FWD_COS_BIT_COL[idx][idx]
+        cb_row = T2._FWD_COS_BIT_ROW[idx][idx]
+        fwd = T1.fdct_stages(n, cb_col)
+        inv = T1.idct_stages(n, T1.INV_COS_BIT)
+        put(f"fdct{n}_col", fwd)
+        put(f"fdct{n}_row", T1.fdct_stages(n, cb_row))
+        put(f"idct{n}", inv)
+        ns = min(n, 32)
+        scan = np.asarray(tables.scan(tx, c.DCT_DCT), np.int64)
+        put(f"scan{n}", scan % ns * n + scan // ns)
+        row = [off[f"fdct{n}_col"], off[f"fdct{n}_row"], off[f"idct{n}"],
+               off[f"scan{n}"], cb_col, cb_row, *T2.FWD_SHIFT[tx],
+               *T2.INV_SHIFT[tx], len(fwd), len(inv), CF._tx_scale(tx),
+               ns * ns]
+        assert len(row) == len(RESIDUAL_PARAM_FIELDS)
+        out[16 * s:16 * s + len(row)] = row
+    out.setflags(write=False)
+    return out
+
+
+@lru_cache(maxsize=None)
+def _residual_tables_on(device: torch.device):
+    return torch.as_tensor(residual_tables().copy(), device=device)
+
+
+@lru_cache(maxsize=None)
+def _scans_on(tx: int, device: torch.device):
+    """(scan, its inverse, the DC mask) of tx's DCT_DCT scan on device."""
+    scan = torch.tensor(np.asarray(tables.scan(tx, c.DCT_DCT)),
+                        dtype=torch.int64, device=device)
+    return (scan, torch.argsort(scan),
+            torch.arange(scan.numel(), device=device) == 0)
+
+
+def rd_dropout_plain(qc, dqc, scan, inv_scan, lam, tx_size: int,
+                     rbits=1.0):
+    """Trellis-lite tail dropout (the reference's _rd_dropout): cut the
+    scan tail where the suffix sum of (K*dq^2 - lam*bits) over dropped
+    nonzeros is most negative (lam: a scalar, or each block's (B,))."""
+    from .wavefront import log2_f32
+    K = TX_SSE_K.get(int(tx_size), 0.02)
+    qs = qc.index_select(-1, scan)
+    ds = dqc.index_select(-1, scan).to(torch.float32)
+    n = qs.shape[-1]
+    idx = torch.arange(n, device=qc.device)
+    nz = qs != 0
+    marked = torch.where(nz, idx, -1)
+    prev_incl = torch.cummax(marked, dim=-1).values
+    prev_excl = torch.cat([torch.full_like(prev_incl[..., :1], -1),
+                           prev_incl[..., :-1]], -1)
+    gap = (idx - prev_excl - 1).to(torch.float32)
+    lvl_bits = 1.7 + 2.0 * log2_f32(qs.abs().to(torch.float32) + 1.0)
+    save = torch.where(nz, rbits + lvl_bits + 0.55 * gap, 0.0)
+    cost = torch.where(nz, K * ds * ds, 0.0)
+    if isinstance(lam, torch.Tensor) and lam.dim():
+        lam = lam[:, None]
+    net = cost - lam * save
+    suffix = net.flip(-1).cumsum(-1).flip(-1)
+    best, at = suffix.min(-1, keepdim=True)
+    cut = torch.where(best < 0, at, n)
+    mask = (idx < cut).index_select(-1, inv_scan)
+    return qc * mask, dqc * mask
+
+
+def code_residual_plain(src, pred, tx: int, pq, lam, dropout: bool = True):
+    """code_residual as a composition of torch ops on any device: the
+    transforms of ops/txfm.py, the quantizer through quantize_b_vec
+    (ops/wavefront.py quantize), rd_dropout_plain, the rate estimate of
+    ops/wavefront.py est_bits."""
+    from .wavefront import est_bits, quantize
+    scan, iscan, dc = _scans_on(tx, src.device)
+    resid = src - pred.to(torch.int32)
+    coeff = fwd_txfm2d_batched(resid, tx, c.DCT_DCT)
+    q, dq = (t.reshape(coeff.shape) for t in quantize(
+        coeff.reshape(pq.shape[0], -1, coeff.shape[-1]), pq,
+        CF._tx_scale(tx), dc))
+    if dropout:
+        q, dq = rd_dropout_plain(q, dq, scan, iscan, lam, tx)
+    bits, eob = est_bits(q, scan)
+    rec = inv_txfm2d_add_batched(dq, pred, tx, c.DCT_DCT)
+    rec = torch.where((eob > 0)[:, None, None], rec, pred)
+    return q, eob, rec, bits
+
+
+def code_residual(src, pred, tx: int, pq, lam, dropout: bool = True):
+    """K4's fused entry for the P frames (replaces pallas_kernels
+    ._quant_kernel's inline twin wavefront._quantize_jnp with the residual
+    coding of inter_tpu._p_frame_core and _eval_merge_level around it):
+    codes one plane's blocks at transform size tx in one launch.
+
+    src (B, n, n) int32 or uint8 source blocks and pred (B, n, n) uint8
+    predictions, n = 8, 16, 32, 64 for tx TX_8X8 .. TX_64X64 (DCT_DCT); pq
+    (F, 5, 2) int32 (ops/wavefront.py pq_array of each frame), block b
+    taking row b // (B / F); lam (B,) float32, each block's RD multiplier;
+    dropout: cut each block's scan tail (False where AVL_NO_DROPOUT is set;
+    the caller reads it).  Returns (q (B, n_coef) int32 levels in raster
+    order (tx64: its 32x32 corner), eob (B,) int64 in scan order, rec (B,
+    n, n) uint8 (pred where eob is 0), bits (B,) float32)."""
+    name = "quantize_b_vec"
+    _require(tx in RESIDUAL_TX, name,
+             "code_residual: tx must be TX_8X8, TX_16X16, TX_32X32 or "
+             "TX_64X64")
+    n = RESIDUAL_TX[tx]
+    _require(src.dim() == 3 and tuple(src.shape[1:]) == (n, n)
+             and src.dtype in (torch.int32, torch.uint8), name,
+             f"code_residual: src must be int32 or uint8 (B, {n}, {n})")
+    B = src.shape[0]
+    _require(pred.dtype == torch.uint8 and pred.shape == src.shape, name,
+             f"code_residual: pred must be uint8 ({B}, {n}, {n})")
+    _require(pq.dtype == torch.int32 and pq.dim() == 3
+             and tuple(pq.shape[1:]) == (5, 2) and pq.shape[0] > 0
+             and B % pq.shape[0] == 0, name,
+             "code_residual: pq must be int32 (F, 5, 2) with F dividing B")
+    _require(lam.dtype == torch.float32 and tuple(lam.shape) == (B,), name,
+             f"code_residual: lam must be float32 ({B},)")
+    if _on_cpu(name, src, pred, pq, lam):
+        return code_residual_plain(src, pred, tx, pq, lam, dropout)
+    src, pred, pq, lam = (t.contiguous() for t in (src, pred, pq, lam))
+    tab = _residual_tables_on(src.device)
+    q = torch.empty((B, min(n, 32) ** 2), dtype=torch.int32,
+                    device=src.device)
+    eob = torch.empty(B, dtype=torch.int64, device=src.device)
+    rec = torch.empty_like(pred)
+    bits = torch.empty(B, dtype=torch.float32, device=src.device)
+    if B:
+        _launch(name, "avl_code_residual", q.data_ptr(), eob.data_ptr(),
+                rec.data_ptr(), bits.data_ptr(), src.data_ptr(),
+                int(src.dtype == torch.uint8), pred.data_ptr(),
+                pq.data_ptr(), lam.data_ptr(), tab.data_ptr(), tab.numel(),
+                n, B, B // pq.shape[0], float(np.float32(TX_SSE_K[tx])),
+                INV_LN2, int(bool(dropout)))
+    return q, eob, rec, bits

@@ -97,7 +97,8 @@ DEVICE_FUNCS = {
                        "block_ssd_at_kernel"),
     "ssd_surface": ("ssd_plane_kernel", "ssd_surface_kernel"),
     "convolve_8tap": ("conv8_plane_kernel", "convolve_8tap_kernel"),
-    "quantize_b_vec": ("quantize_b_kernel", "wave_encode_kernel"),
+    "quantize_b_vec": ("quantize_b_kernel", "wave_encode_kernel",
+                       "code_residual_kernel"),
 }
 #: launches of one 1080p slice (a KEY and one GF group of 7) that the
 #: slice's structure fixes: per (frame, reference) of the ARF and the six P
@@ -113,10 +114,11 @@ EXPECTED = {
                 "avl_ssd_surface": 0},
 }
 #: K4 in either slice: one fused launch a wave of the KEY (187 waves at
-#: 1080p) and 9 quantize_b_vec launches for each of the 7 chained frames
+#: 1080p) and one fused residual coding a plane and level (9) for each of
+#: the 7 chained frames; the plain quantizer entry runs on none of them
 for _exp in EXPECTED.values():
-    _exp.update({"avl_wave_encode": 187, "avl_quantize_b": 63,
-                 "quantize_b_vec": 250})
+    _exp.update({"avl_wave_encode": 187, "avl_code_residual": 63,
+                 "avl_quantize_b": 0, "quantize_b_vec": 250})
 
 
 class BenchError(RuntimeError):

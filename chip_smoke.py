@@ -12,7 +12,12 @@
    memory rate or its operations at the peak rate, whichever is larger)
    is computed from the case's tensors.  K4's fused entry wave_encode
    (one wave of the wavefront KEY a launch) is held to its plain version
-   too: every integer output exact, the float32 costs to 1e-6 relative.
+   too: every integer output exact, the float32 costs to 1e-6 relative;
+   and so is its fused entry for the P frames, code_residual (one plane's
+   residual coding at one transform size a launch, at each of the nine
+   shapes of a 1080p P frame and of an FPMT group): levels, eob and recon
+   exact except in blocks whose tail-dropout cut is a float near-tie
+   (counted and printed), bits to 1e-6 relative.
    The frame-axis forms that a frame-parallel group launches (K1 and K2
    over the 6 P frames' sources against one reference, K4 with a quantizer
    per frame) are also held against one launch a frame, and at one frame
@@ -135,6 +140,8 @@ KERNELS = {
                        "quantize_b_vec", "avl_quantize_b"),
     "wave_encode": (f"{CSRC}/wave_encode.cu", f"{PK}:343",
                     "quantize_b_vec", "avl_wave_encode"),
+    "code_residual": (f"{CSRC}/code_residual.cu", f"{PK}:343",
+                      "quantize_b_vec", "avl_code_residual"),
 }
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): device
 # memory rate, and operations per second by operand type.  int32 is not in
@@ -264,6 +271,163 @@ def _wave_cases(dev):
                        start, count, pq, key_lambda(w, h, QINDEX)),
                       (ops, "int32"), nbytes))
     return cases
+
+
+#: the residual codings of a 1080p P frame: (n, tx, luma or chroma, the
+#: level's block side), three planes at each of the levels 16, 32 and 64
+RESIDUAL_SHAPES = ((16, 2, "y", 16), (8, 1, "uv", 16), (32, 3, "y", 32),
+                   (16, 2, "uv", 32), (64, 4, "y", 64), (32, 3, "uv", 64))
+
+
+def residual_work(args):
+    """(bytes, integer operations) of one code_residual call on `args`.
+    Bytes: each input tensor and the tables read once, each output (levels,
+    eob, recon, bits) written once.  Operations:
+    the butterflies of the stage tables as the interpreter runs them (5 a
+    rotation, 1 an add/sub, 3 with the inverse's clamp) over the lines each
+    pass computes (n columns; the rows the kept corner needs), and 40 a
+    position around them (residual and shifts 4, quantizer 16 on the kept
+    coefficients, dropout and rate 12, inverse input and shifts 5, recon
+    3)."""
+    import numpy as np
+
+    from aom_av1_lavish_torch.ops import kernels as K
+    tab, off = K.residual_tables(), K.RESIDUAL_TABLE_OFFSETS
+    src, pred, _, pq, lam, _ = args
+    B, n = src.shape[0], src.shape[-1]
+    s = n.bit_length() - 4
+    st = int(tab[16 * s + K.RESIDUAL_PARAM_FIELDS.index("fwd_stages")])
+    ns = min(n, 32)
+    ops = 0
+    for key, inverse, lines in ((f"fdct{n}_col", 0, n),
+                                (f"fdct{n}_row", 0, ns),
+                                (f"idct{n}", 1, ns), (f"idct{n}", 1, n)):
+        kind = tab[off[key]:off[key] + st * n * 5].reshape(-1, 5)[:, 0]
+        ops += lines * int(5 * np.sum(kind == 2)
+                           + (1 + 2 * inverse) * np.sum(kind == 1))
+    nbytes = (tab.nbytes + sum(t.numel() * t.element_size()
+                               for t in (src, pred, pq, lam))
+              + B * (ns * ns * 4 + 8 + n * n + 4))
+    return nbytes, B * (ops + 40 * n * n)
+
+
+def _residual_cases(dev):
+    """code_residual at the shapes of a 1080p P frame (RESIDUAL_SHAPES) for
+    one frame at q 120 and for a frame-parallel group of FPMT_FRAMES frames
+    at q 100 + 10 f, tail dropout on; then dropout off, and bright content.
+    The sources are tiles of the benchmark clip; each prediction is its
+    source with noise of a per-block spread (0, 2, 6, 20 or 60: no
+    residual up to a poor match)."""
+    import numpy as np
+    import torch
+
+    from aom_av1_lavish_torch.common import quant as Q
+    from aom_av1_lavish_torch.ops import inter as IT
+    from aom_av1_lavish_torch.ops.wavefront import pq_array
+    from aom_av1_lavish_torch.utils.clips import make_frames
+
+    rng = np.random.default_rng(6)
+    nf = FPMT_FRAMES
+    frames = make_frames(nf, W, H)
+    planes = {"y": torch.as_tensor(np.stack([f[0] for f in frames]),
+                                   device=dev),
+              "uv": torch.as_tensor(np.stack([f[1] for f in frames]),
+                                    device=dev)}
+
+    def blocks(plane, n, bsz, F):
+        src = IT._tiles(planes[plane][:F], n, H // bsz, W // bsz)
+        B = src.shape[0]
+        spread = torch.as_tensor(rng.choice([0, 2, 6, 20, 60], B),
+                                 device=dev)[:, None, None]
+        noise = torch.as_tensor(rng.integers(-60, 61, tuple(src.shape)),
+                                device=dev)
+        pred = (src + noise.clamp(-spread, spread)).clamp(0, 255)
+        return src.contiguous(), pred.to(torch.uint8)
+
+    def quant(qs, B):
+        pq = torch.as_tensor(np.stack([pq_array(Q.build_plane_quant(
+            q, 0, 0)) for q in qs]), device=dev)
+        lam = torch.as_tensor(np.repeat([IT.rd_lambda(q) for q in qs],
+                                        B // len(qs)), device=dev)
+        return pq, lam
+
+    cases = []
+
+    def add(label, src, pred, n, tx, pq, lam, dropout):
+        args = (src, pred, tx, pq, lam, dropout)
+        nbytes, ops = residual_work(args)
+        cases.append(("code_residual", "code_residual", label, args,
+                      (ops, "int32"), nbytes))
+
+    for F, qs in ((1, [QINDEX]), (nf, [100 + 10 * f for f in range(nf)])):
+        for n, tx, plane, bsz in RESIDUAL_SHAPES:
+            src, pred = blocks(plane, n, bsz, F)
+            add(f"{plane} n{n} level {bsz} F{F} B{src.shape[0]}", src, pred,
+                n, tx, *quant(qs, src.shape[0]), True)
+    for n, tx, plane, bsz in RESIDUAL_SHAPES[:2]:
+        src, pred = blocks(plane, n, bsz, 1)
+        add(f"{plane} n{n} level {bsz} F1 B{src.shape[0]} no dropout", src,
+            pred, n, tx, *quant([QINDEX], src.shape[0]), False)
+    for n, tx in ((32, 3), (64, 4)):
+        B = W // 64 * (H // 64)
+        src = torch.as_tensor(rng.integers(200, 256, (B, n, n)),
+                              dtype=torch.int32, device=dev)
+        pred = torch.as_tensor(rng.integers(0, 60, (B, n, n)),
+                               dtype=torch.uint8, device=dev)
+        add(f"y n{n} bright F1 B{B} q 20", src, pred, n, tx,
+            *quant([20], B), True)
+    return cases
+
+
+def residual_error(got, want, args):
+    """code_residual against its plain version -> (max abs difference of
+    the integer outputs outside near-tie blocks, max relative difference
+    of the bits, blocks that differ at a near-tie).  A block whose levels,
+    eob or recon differ is a near-tie when the two tail-dropout cuts are:
+    the suffix sums of the RD tail dropout at the two cuts (each side's
+    eob), taken in float64 from the undropped levels, lie within the
+    float32 error a sum of that many terms can have in another order,
+    m * 2^-22 * (sum of |terms|) for m nonzero levels.  Any other
+    difference counts."""
+    import torch
+
+    from aom_av1_lavish_torch.bitstream import constants as c
+    from aom_av1_lavish_torch.common import coeffs as CF
+    from aom_av1_lavish_torch.ops import kernels as K
+    from aom_av1_lavish_torch.ops.txfm import fwd_txfm2d_batched
+    from aom_av1_lavish_torch.ops.wavefront import quantize
+
+    src, pred, tx, pq, lam, dropout = args
+    rel = float(((got[3] - want[3]).abs()
+                 / want[3].abs().clamp_min(1e-30)).max())
+    differ = ((got[0] != want[0]).any(1) | (got[1] != want[1])
+              | (got[2] != want[2]).flatten(1).any(1))
+    bad = differ.clone()
+    if dropout and bool(differ.any()):
+        idx = differ.nonzero()[:, 0]
+        scan, _, dc = K._scans_on(tx, src.device)
+        coeff = fwd_txfm2d_batched(src - pred.to(torch.int32), tx, c.DCT_DCT)
+        q, dq = (t.reshape(coeff.shape) for t in quantize(
+            coeff.reshape(pq.shape[0], -1, coeff.shape[-1]), pq,
+            CF._tx_scale(tx), dc))
+        qs = q[idx].index_select(-1, scan).double()
+        ds = dq[idx].index_select(-1, scan).double()
+        nz = qs != 0
+        j = torch.arange(qs.shape[-1], device=qs.device)
+        prev = torch.cummax(torch.where(nz, j, -1), -1).values
+        prev = torch.cat([torch.full_like(prev[:, :1], -1), prev[:, :-1]], 1)
+        lvl = 1.7 + 2.0 * torch.log2(qs.abs() + 1.0)
+        net = torch.where(nz, K.TX_SSE_K[tx] * ds * ds - lam[idx, None].double()
+                          * (1.0 + lvl + 0.55 * (j - prev - 1)), 0.0)
+        suffix = torch.cat([net.flip(-1).cumsum(-1).flip(-1),
+                            torch.zeros_like(net[:, :1])], 1)
+        at_g = suffix.gather(1, got[1][idx, None]).squeeze(1)
+        at_w = suffix.gather(1, want[1][idx, None]).squeeze(1)
+        tol = nz.sum(1) * 2.0 ** -22 * net.abs().sum(1)
+        bad[idx] = (at_g - at_w).abs() > tol
+    err = max(float(((g.long() - w.long()).abs().reshape(g.shape[0], -1)
+                     * bad[:, None]).max()) for g, w in zip(got[:3], want[:3]))
+    return err, rel, int(differ.sum()) - int(bad.sum())
 
 
 def run_case(K, fn: str, args):
@@ -562,7 +726,8 @@ def _cases(dev):
         cases.append(("quantize_b_vec", "quantize_b_vec",
                       f"n{n} rows{rows} ls{log_scale} ({what})",
                       (coeff, *par, log_scale), (16 * rows * n, "int32")))
-    return cases + _frame_axis_cases(dev, rng) + _wave_cases(dev)
+    return (cases + _frame_axis_cases(dev, rng) + _wave_cases(dev)
+            + _residual_cases(dev))
 
 
 def _frame_axis_cases(dev, rng):
@@ -635,6 +800,12 @@ def frame_args(fn: str, args, sl):
         return (args[0][sl], *args[1:])
     if fn == "block_ssd_at":
         return (args[0][sl], args[1], args[2][sl], args[3][sl], *args[4:])
+    if fn == "code_residual":
+        src, pred, tx, pq, lam, dropout = args
+        per = src.shape[0] // pq.shape[0]
+        f = sl.start if isinstance(sl, slice) else sl
+        blk = slice(f * per, (f + 1) * per)
+        return (src[blk], pred[blk], tx, pq[f:f + 1], lam[blk], dropout)
     return (args[0][sl], *(p[sl] for p in args[1:6]), args[6])
 
 
@@ -651,11 +822,13 @@ def check_frame_axis(K, fn: str, label: str, args) -> None:
     per = [p if isinstance(p, tuple) else (p,) for p in per]
     one = wrapper(*frame_args(fn, args, slice(0, 1)))
     one = one if isinstance(one, tuple) else (one,)
+    # code_residual's blocks run over the frames in turn on one axis
+    join = torch.cat if fn == "code_residual" else torch.stack
     for i, g in enumerate(got):
-        if not torch.equal(g, torch.stack([p[i] for p in per])):
+        if not torch.equal(g, join([p[i] for p in per])):
             raise AssertionError(f"{fn} {label}: the batch differs from "
                                  "one launch a frame")
-        if not torch.equal(one[i], per[0][i][None]):
+        if not torch.equal(one[i], join([per[0][i]])):
             raise AssertionError(f"{fn} {label}: a batch of one frame "
                                  "differs from the single-frame form")
     log(f"{fn} {label}: equal to {FPMT_FRAMES} single-frame launches, and "
@@ -711,6 +884,15 @@ def phase_kernels(dev) -> dict:
                 "lie within 1e-6 and whose mode differs")
             if not rel <= 1e-6:
                 raise AssertionError(f"{name} {label}: costs differ from "
+                                     f"the plain version's by {rel:.3g}")
+        elif fn == "code_residual":
+            err, rel, ties = residual_error(got, want, args)
+            log(f"{name} {label}: levels, eob, recon max abs difference "
+                f"{err:g} outside near-ties; bits max relative difference "
+                f"{rel:.3g} (limit 1e-6); {ties} block(s) whose dropout cut "
+                "differs at a float near-tie")
+            if not rel <= 1e-6:
+                raise AssertionError(f"{name} {label}: bits differ from "
                                      f"the plain version's by {rel:.3g}")
         else:
             err = max([float((g.double() - w.double()).abs().max())
@@ -1329,8 +1511,8 @@ ALL_KERNELS = ("gather_windows", "ssd_surface", "convolve_8tap",
                "quantize_b_vec")
 #: per 1080p P frame over one reference with 1/8-pel MVs: 22 sub-pel
 #: predictions, 3 snap candidates and 2 chroma planes (27), and 7 per merge
-#: level (5 candidates, 2 chroma planes); K4 once per plane and level; a KEY
-#: is 187 waves, one fused K4 launch (wave_encode) each
+#: level (5 candidates, 2 chroma planes); K4's residual entry once per plane
+#: and level; a KEY is 187 waves, one fused K4 launch (wave_encode) each
 K3_FIXED16, K3_MERGE, K4_KEY = 27, 27 + 2 * 7, 187
 
 
@@ -1363,7 +1545,9 @@ def phase_rdo_key(dev, tmp) -> dict:
         # quantizer calls each
         (enc, payloads), _, launches = timed_path(
             f"device-RDO KEY GOP {w}x{h}", run, need=ALL_KERNELS,
-            expected={"quantize_b_vec": 11 + 2 * 10 + 7 * 9})
+            expected={"quantize_b_vec": 11 + 2 * 10 + 7 * 9,
+                      "avl_quantize_b": 11 + 2 * 10,
+                      "avl_code_residual": 7 * 9})
         shown, state = decode_payloads(payloads)
         if len(shown) != N_FRAMES:
             raise AssertionError(f"decoded {len(shown)} frames")
@@ -1411,7 +1595,8 @@ def phase_lowdelay(dev, tmp, frames) -> dict:
                   "avl_gather_windows": 0,
                   "convolve_8tap": K3_MERGE * n_p,
                   "quantize_b_vec": K4_KEY + 9 * n_p,
-                  "avl_wave_encode": K4_KEY, "avl_quantize_b": 9 * n_p})
+                  "avl_wave_encode": K4_KEY, "avl_quantize_b": 0,
+                  "avl_code_residual": 9 * n_p})
     shown, state = decode_payloads(read_payloads(path))
     n = require_slots_equal("low delay", enc.slots, state)
     log(f"  decode: {len(shown)} frames; {n} slot planes equal the encoder "
@@ -1445,7 +1630,8 @@ def phase_realtime(dev, tmp, frames) -> dict:
                   "avl_gather_windows": 0,
                   "convolve_8tap": K3_FIXED16 * n_p,
                   "quantize_b_vec": K4_KEY + 3 * n_p,
-                  "avl_wave_encode": K4_KEY, "avl_quantize_b": 3 * n_p})
+                  "avl_wave_encode": K4_KEY, "avl_quantize_b": 0,
+                  "avl_code_residual": 3 * n_p})
     shown, _ = decode_payloads(read_payloads(path))
     if len(shown) != len(frames):
         raise AssertionError(f"decoded {len(shown)} frames")
@@ -1546,7 +1732,8 @@ def phase_twopass(dev, tmp, frames) -> dict:
 
     enc, secs2, launches = timed_path(
         f"two-pass {W}x{H}, {len(frames)} frames", run, need=ALL_KERNELS,
-        expected={"avl_wave_encode": K4_KEY, "avl_quantize_b": 63})
+        expected={"avl_wave_encode": K4_KEY, "avl_quantize_b": 0,
+                  "avl_code_residual": 63})
     back = load_stats(os.path.join(tmp, "fpstats"))
     if [s.to_array().tolist() for s in back] != \
             [s.to_array().tolist() for s in stats]:
@@ -1581,6 +1768,7 @@ def phase_intra_batch(dev, tmp, frames) -> dict:
                           expected={"quantize_b_vec": K4_KEY,
                                     "avl_wave_encode": K4_KEY,
                                     "avl_quantize_b": 0,
+                                    "avl_code_residual": 0,
                                     "gather_windows": 0, "ssd_surface": 0,
                                     "convolve_8tap": 0})
 
@@ -1636,13 +1824,14 @@ def fpmt_per_group(qindexes) -> dict:
     K2 surfaces (full and half res) and one fused K1 refine; K3 90 at any
     q (the eighth-pel diamond always runs, each frame taking its pick by
     its flag): each reference's sub-pel refine, the snap candidates, the
-    three interp-filter banks, two chroma planes, and 7 a merge level; K4
-    once per plane and level."""
+    three interp-filter banks, two chroma planes, and 7 a merge level; K4's
+    residual entry once per plane and level."""
     return {"ssd_surface": 4, "avl_ssd_surface_plane": 4,
             "gather_windows": 2, "avl_block_ssd_at": 2,
             "avl_gather_windows": 0,
             "convolve_8tap": 90, "avl_convolve_8tap_plane": 90,
-            "quantize_b_vec": 9, "avl_quantize_b": 9, "avl_wave_encode": 0}
+            "quantize_b_vec": 9, "avl_code_residual": 9, "avl_quantize_b": 0,
+            "avl_wave_encode": 0}
 
 
 def require_group_launches(label, calls) -> None:
@@ -2200,14 +2389,20 @@ def main() -> int:
 
     # launches: the default-configuration slice's (this script's main
     # path), K1's two entries apart; the cpu_used 8 slice's and each other
-    # path's beside them
+    # path's beside them.  An entry that the main path does not run (K4's
+    # plain quantizer, which only the device-RDO KEY calls since the P
+    # frames code their residuals with code_residual) takes the count of
+    # the first path that ran it, named in launches_from
     kernels = []
     for name, rec in recs.items():
         key = KERNELS[name][3]
+        by = {p: v.get(key, 0) for p, v in by_path.items()}
+        src = ("default 1080p slice" if launches.get(key, 0)
+               else next((p for p, v in by.items() if v), "none"))
         kernels.append(dict(
-            rec, launches=launches.get(key, 0),
-            launches_cpu_used_8=launches8.get(key, 0),
-            launches_by_path={p: v.get(key, 0) for p, v in by_path.items()}))
+            rec, launches=launches.get(key, 0) or by.get(src, 0),
+            launches_from=src, launches_cpu_used_8=launches8.get(key, 0),
+            launches_by_path=by))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

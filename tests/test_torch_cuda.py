@@ -39,6 +39,10 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
             err, rel, _ = chip_smoke.wave_error(got, want, args)
             assert err == 0.0 and rel <= 1e-6, f"{name} {label}"
             continue
+        if fn == "code_residual":
+            err, rel, _ = chip_smoke.residual_error(got, want, args)
+            assert err == 0.0 and rel <= 1e-6, f"{name} {label}"
+            continue
         for g, w in zip(got, want):
             assert torch.equal(g, w), f"{name} {label}"
 
@@ -594,3 +598,82 @@ def test_cuda_failed_capture_raises(cuda_device, what):
         prog(torch.ones(4, device=cuda_device))
     assert prog.captures == {}
     assert K.launch_counts() == before
+
+
+def _residual_inputs(dev, n, bsz, chroma, F, seed):
+    """code_residual's inputs at a 1080p P frame's shape: the blocks of F
+    frames' luma or chroma planes at block side n for level bsz, random
+    sources, predictions off by a per-block spread (0 to 60), a quantizer
+    and lambda a frame (q 100 + 10 f)."""
+    from aom_av1_lavish_torch.common import quant as Q
+    from aom_av1_lavish_torch.ops import inter as IT
+    from aom_av1_lavish_torch.ops.wavefront import pq_array
+    rng = np.random.default_rng(seed)
+    B = F * (1088 // bsz) * (1920 // bsz)
+    src = rng.integers(0, 256, (B, n, n))
+    spread = rng.choice([0, 2, 6, 20, 60], B)[:, None, None]
+    pred = (src + rng.integers(-60, 61, src.shape).clip(-spread, spread)) \
+        .clip(0, 255)
+    qs = [100 + 10 * f for f in range(F)]
+    pq = np.stack([pq_array(Q.build_plane_quant(q, 0, 0)) for q in qs])
+    lam = np.repeat([IT.rd_lambda(q) for q in qs], B // F)
+    return tuple(torch.as_tensor(a, device=dev) for a in (
+        src.astype(np.uint8 if chroma else np.int32), pred.astype(np.uint8),
+        pq, lam.astype(np.float32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [True, False])
+@pytest.mark.parametrize("F", [1, 6])
+@pytest.mark.parametrize("n,tx,bsz,chroma", [
+    (16, 2, 16, False), (8, 1, 16, True), (32, 3, 32, False),
+    (16, 2, 32, True), (64, 4, 64, False), (32, 3, 64, True)])
+def test_cuda_code_residual_matches_plain_at_1080p(cuda_device, n, tx, bsz,
+                                                   chroma, F, dropout):
+    """K4's residual entry on the card at each shape of a 1080p P frame,
+    for one frame and for a frame-parallel group of 6 (a quantizer a
+    frame), tail dropout on and off: levels, eob and recon equal to the
+    plain version except where a dropout cut is a float near-tie (none
+    without dropout), bits to 1e-6 relative; one launch, counted under K4
+    and under its entry."""
+    import chip_smoke
+    src, pred, pq, lam = _residual_inputs(cuda_device, n, bsz, chroma, F,
+                                          n + F)
+    args = (src, pred, tx, pq, lam, dropout)
+    K.reset_launches()
+    got = K.code_residual(*args)
+    assert K.LAUNCHES["quantize_b_vec"] == 1
+    assert K.ENTRY_LAUNCHES == {"avl_code_residual": 1}
+    want = K.code_residual_plain(*args)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+    err, rel, ties = chip_smoke.residual_error(got, want, args)
+    assert err == 0.0 and rel <= 1e-6
+    assert ties == 0 or dropout
+
+
+@pytest.mark.cuda
+def test_cuda_code_residual_in_a_captured_program(cuda_device, monkeypatch):
+    """ops/inter._code_residual inside a device program (a CUDA graph): a
+    replay on new inputs equals the plain version on them, and
+    AVL_NO_DROPOUT is read at the capture, not at the replay."""
+    import chip_smoke
+    from aom_av1_lavish_torch.ops import inter as IT
+    from aom_av1_lavish_torch.ops.graphs import DeviceProgram
+
+    monkeypatch.delenv("AVL_NO_DROPOUT", raising=False)
+    prog = DeviceProgram(lambda src, pred, pq, lam: IT._code_residual(
+        src, pred, 2, pq, lam), "code_residual")
+    first = _residual_inputs(cuda_device, 16, 16, False, 1, 1)
+    prog(*first)
+    monkeypatch.setenv("AVL_NO_DROPOUT", "1")
+    for seed in (2, 3):
+        ins = _residual_inputs(cuda_device, 16, 16, False, 1, seed)
+        K.reset_launches()
+        got = [t.clone() for t in prog(*ins)]
+        assert K.ENTRY_LAUNCHES == {"avl_code_residual": 1}
+        args = (ins[0], ins[1], 2, ins[2], ins[3], True)
+        err, rel, _ = chip_smoke.residual_error(got, K.code_residual_plain(
+            *args), args)
+        assert err == 0.0 and rel <= 1e-6
+    assert prog.capture_of(*ins).replays == 3

@@ -119,10 +119,13 @@ def test_host_helpers_match_reference():
 def test_rd_dropout_matches_jax(monkeypatch, tx, no_dropout):
     """The RD tail dropout on the same seeded coefficients, the JAX
     function called eagerly: equal levels and dequantized values, with
-    AVL_NO_DROPOUT unset (tails cut) and set (nothing dropped); both
-    functions read the variable at the call."""
+    AVL_NO_DROPOUT unset (tails cut) and set (nothing dropped).  Both
+    packages read the variable at the call: the JAX function itself, the
+    port where residual coding takes its dropout flag (ops/inter._dropout),
+    which decides whether kernels.rd_dropout_plain runs."""
     from aom_av1_lavish_tpu.bitstream import constants as c
     from aom_av1_lavish_tpu.bitstream import tables
+    from aom_av1_lavish_torch.ops import kernels as K
 
     if no_dropout:
         monkeypatch.setenv("AVL_NO_DROPOUT", "1")
@@ -138,8 +141,10 @@ def test_rd_dropout_matches_jax(monkeypatch, tx, no_dropout):
     ref = IJ._rd_dropout(jnp.asarray(qc), jnp.asarray(dqc), scan,
                          np.argsort(scan), lam, tx)
     st = torch.as_tensor(scan, dtype=torch.int64)
-    got = IT._rd_dropout(torch.from_numpy(qc), torch.from_numpy(dqc), st,
-                         torch.argsort(st), lam, tx)
+    got = (torch.from_numpy(qc), torch.from_numpy(dqc))
+    assert IT._dropout() != no_dropout
+    if IT._dropout():
+        got = K.rd_dropout_plain(*got, st, torch.argsort(st), lam, tx)
     for g, r in zip(got, ref):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
     kept = int(np.count_nonzero(got[0].numpy()))

@@ -804,3 +804,350 @@ def test_wave_encode_on_cpu_tensors_is_its_plain_version():
     rest = order[offsets[2]:].long()
     assert (rows[:, rest] == -7).all() and (rows[:, done, 4:6] == 0).all()
     assert set(rows[:, done, 0].flatten().tolist()) <= set(WT.WAVE_MODES)
+
+
+# ---------------------------------------------------------------------------
+# K4's fused entry for the P frames: the tables handed to the residual
+# kernel, a numpy model of the kernel's data path run from those tables
+# alone, the plain version against the JAX package's composition, and the
+# wrapper on the CPU
+
+RESIDUAL_SIZES = ((8, 1), (16, 2), (32, 3), (64, 4))     # n, TX_NxN
+
+
+def _residual_part(key, size):
+    o = K.RESIDUAL_TABLE_OFFSETS[key]
+    return K.residual_tables()[o:o + size]
+
+
+def _residual_params(n):
+    s = n.bit_length() - 4
+    row = K.residual_tables()[16 * s:16 * s + len(K.RESIDUAL_PARAM_FIELDS)]
+    return dict(zip(K.RESIDUAL_PARAM_FIELDS, (int(v) for v in row)))
+
+
+@pytest.mark.parametrize("n,tx", RESIDUAL_SIZES)
+def test_code_residual_tables_stages_scans_and_params(n, tx):
+    """The residual kernel's tables: the stage tables of the port's
+    common/txfm1d.py (and of the JAX package's) at the cos bits of
+    common/txfm2d.py, the scan as positions of the kernel's layout (raster
+    index c * s + r at position r * n + c, s = min(n, 32)), the shifts,
+    stage counts and log scale, each size's parameter row pointing at its
+    parts; and the parts tile the array without overlap."""
+    from aom_av1_lavish_tpu.common import txfm1d as RT1
+    from aom_av1_lavish_torch.bitstream import constants as c
+    from aom_av1_lavish_torch.bitstream import tables
+    from aom_av1_lavish_torch.common import coeffs as CF
+    from aom_av1_lavish_torch.common import txfm1d as T1
+    from aom_av1_lavish_torch.common import txfm2d as T2
+    par = _residual_params(n)
+    idx = n.bit_length() - 3
+    for key, cos_bit, inverse in (
+            ("col", T2._FWD_COS_BIT_COL[idx][idx], False),
+            ("row", T2._FWD_COS_BIT_ROW[idx][idx], False),
+            ("inv", T1.INV_COS_BIT, True)):
+        part = f"idct{n}" if inverse else f"fdct{n}_{key}"
+        assert par[{"col": "fdct_col", "row": "fdct_row",
+                    "inv": "idct"}[key]] == K.RESIDUAL_TABLE_OFFSETS[part]
+        for mod in (T1, RT1):
+            stages = (mod.idct_stages if inverse
+                      else mod.fdct_stages)(n, cos_bit)
+            want = np.asarray(stages, np.int64)
+            got = _residual_part(part, want.size).reshape(want.shape)
+            np.testing.assert_array_equal(got, want)
+        assert par["inv_stages" if inverse else "fwd_stages"] == len(stages)
+        if not inverse:
+            assert par[f"cos_{key}"] == cos_bit
+    ns = min(n, 32)
+    assert par["n_coef"] == ns * ns
+    assert par["scan"] == K.RESIDUAL_TABLE_OFFSETS[f"scan{n}"]
+    scan_p = _residual_part(f"scan{n}", ns * ns).astype(np.int64)
+    r, cc = scan_p // n, scan_p % n
+    assert r.max() < ns and cc.max() < ns
+    np.testing.assert_array_equal(cc * ns + r, tables.scan(tx, c.DCT_DCT))
+    assert (par["fwd_shift0"], par["fwd_shift1"],
+            par["fwd_shift2"]) == T2.FWD_SHIFT[tx]
+    assert (par["inv_shift0"], par["inv_shift1"]) == T2.INV_SHIFT[tx]
+    assert par["log_scale"] == CF._tx_scale(tx)
+    off = K.RESIDUAL_TABLE_OFFSETS
+    at = 16 * len(RESIDUAL_SIZES)
+    for m, _ in RESIDUAL_SIZES:
+        st = _residual_params(m)["fwd_stages"]
+        for key, size in ((f"fdct{m}_col", st * m * 5),
+                          (f"fdct{m}_row", st * m * 5),
+                          (f"idct{m}", st * m * 5),
+                          (f"scan{m}", min(m, 32) ** 2)):
+            assert off[key] == at
+            at += size
+    assert off["total"] == at == K.residual_tables().size
+    assert K.residual_tables().dtype == np.int32
+
+
+def _wrap32(v):
+    return (np.asarray(v, np.int64) + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def _shift(v, bit):
+    """ops/txfm.py _round_shift in int32."""
+    if bit > 0:
+        return _wrap32(v + (1 << (bit - 1))) >> bit
+    return _wrap32(v << -bit) if bit < 0 else v
+
+
+def _residual_pass(x, tab, cos_bit, along_rows, inverse, post, clamp_out,
+                   lines):
+    """One 1-D pass of the residual kernel (csrc/code_residual.cu
+    txfm_pass) over blocks x (B, n, n) int64, position r * n + c at
+    [r, c]; a pass along the rows computes rows < lines."""
+    cur = x.copy()
+    n = x.shape[-1]
+    shape = (1, 1, n) if along_rows else (1, n, 1)
+    for s in range(tab.shape[0]):
+        kind, s0, s1, w0, w1 = (tab[s, :, k].astype(np.int64)
+                                for k in range(5))
+        if along_rows:
+            a, b = cur[:, :lines][..., s0], cur[:, :lines][..., s1]
+        else:
+            a, b = cur[:, s0, :], cur[:, s1, :]
+        kind, w0, w1 = (v.reshape(shape) for v in (kind, w0, w1))
+        btf = _wrap32((a * w0 + b * w1 + (1 << (cos_bit - 1))) >> cos_bit)
+        lin = _wrap32(_wrap32(a * w0) + _wrap32(b * w1))
+        if inverse:
+            lin = lin.clip(-32768, 32767)
+        v = np.where(kind == 2, btf, np.where(kind == 1, lin,
+                                              _wrap32(a * w0)))
+        if s == tab.shape[0] - 1:
+            v = _shift(v, post)
+            if clamp_out:
+                v = v.clip(-32768, 32767)
+        if along_rows:
+            cur = cur.copy()
+            cur[:, :lines] = v
+        else:
+            cur = v
+    return cur
+
+
+def _residual_model(src, pred, n, pq, lam, dropout):
+    """What the residual kernel does to B blocks of side n, from
+    residual_tables() alone: int64 numpy for the integer path, numpy
+    float32 scalars in the kernel's order for the float decisions (the
+    header of csrc/code_residual.cu).  -> (q (B, n_coef) raster, eob,
+    rec, bits)."""
+    par = _residual_params(n)
+    f32 = np.float32
+    st, si = par["fwd_stages"], par["inv_stages"]
+    tab = {k: _residual_part(f"{k}{n}{sfx}", s * n * 5).reshape(s, n, 5)
+           for k, sfx, s in (("fdct", "_col", st), ("idct", "", si))}
+    tab["row"] = _residual_part(f"fdct{n}_row", st * n * 5).reshape(st, n, 5)
+    ns, ls = min(n, 32), par["log_scale"]
+    B = src.shape[0]
+    x = _shift(src.astype(np.int64) - pred, -par["fwd_shift0"])
+    x = _residual_pass(x, tab["fdct"], par["cos_col"], False, False,
+                       -par["fwd_shift1"], False, n)
+    x = _residual_pass(x, tab["row"], par["cos_row"], True, False,
+                       -par["fwd_shift2"], False, ns)
+    per = B // pq.shape[0]
+    q = np.zeros((B, n, n), np.int64)
+    dq = np.zeros((B, n, n), np.int64)
+    for b in range(B):
+        p5 = pq[b // per].astype(np.int64)
+        for j in (0, 1):                  # DC, then every AC position
+            zbin, rnd, quant, qshift, deq = p5[:, j]
+            zbin = (zbin + (1 << ls >> 1)) >> ls
+            rnd = (rnd + (1 << ls >> 1)) >> ls
+            co = x[b, :ns, :ns]
+            ac = np.abs(co)
+            tmp = _wrap32(ac + rnd).clip(-32768, 32767)
+            t = _wrap32(_wrap32(tmp * quant) >> 16) + tmp
+            t = np.where(ac >= zbin, _wrap32(_wrap32(t) * qshift)
+                         >> (16 - ls), 0)
+            sign = np.where(co < 0, -1, 1)
+            sel = np.zeros((ns, ns), bool)
+            sel[0, 0] = True
+            sel = sel if j == 0 else ~sel
+            q[b, :ns, :ns][sel] = (sign * t)[sel]
+            dq[b, :ns, :ns][sel] = (sign * (_wrap32(t * deq) >> ls))[sel]
+    scan = _residual_part(f"scan{n}", ns * ns).astype(np.int64)
+    k_sse, inv_ln2 = f32(K.TX_SSE_K[n.bit_length() - 3]), f32(K.INV_LN2)
+    eob = np.zeros(B, np.int64)
+    bits = np.zeros(B, np.float32)
+    for b in range(B):
+        qf, dqf = q[b].reshape(-1), dq[b].reshape(-1)
+        nz = [j for j in range(ns * ns) if qf[scan[j]]]
+        net, lvl, prev = [], [], -1
+        for j in nz:
+            v = qf[scan[j]]
+            l2 = f32(np.log(f32(f32(abs(v)) + f32(1.0)))) * inv_ln2
+            lv = f32(f32(1.7) + f32(f32(2.0) * l2))
+            ds = f32(dqf[scan[j]])
+            save = f32(f32(f32(1.0) + lv) + f32(f32(0.55) * f32(j - prev - 1)))
+            net.append(f32(f32(f32(k_sse * ds) * ds)
+                           - f32(f32(lam[b]) * save)))
+            lvl.append(lv)
+            prev = j
+        keep = len(nz)
+        if dropout:
+            s, best, at = f32(0.0), f32(0.0), len(nz)
+            for k in range(len(nz) - 1, -1, -1):
+                s = f32(s + net[k])
+                if s <= best:
+                    best, at = s, k
+            keep = at if best < 0 else len(nz)
+        for j in nz[keep:]:
+            qf[scan[j]] = dqf[scan[j]] = 0
+        lanes = [f32(0.0)] * 32
+        for k in range(keep):
+            lanes[k % 32] = f32(lanes[k % 32] + lvl[k])
+        for d in (16, 8, 4, 2, 1):
+            lanes = [f32(lanes[i] + lanes[i ^ d]) for i in range(32)]
+        eob[b] = nz[keep - 1] + 1 if keep else 0
+        l2 = f32(np.log(f32(f32(eob[b]) + f32(1.0)))) * inv_ln2
+        bb = f32(f32(2.0) + f32(f32(0.9) * l2))
+        bb = f32(bb + f32(f32(0.55) * f32(eob[b] - keep)))
+        bits[b] = f32(0.6) if eob[b] == 0 else f32(bb + lanes[0])
+    y = _residual_pass(dq.clip(-32768, 32767), tab["idct"], 12, True, True,
+                       -par["inv_shift0"], True, ns)
+    y = _residual_pass(y, tab["idct"], 12, False, True, -par["inv_shift1"],
+                       False, n)
+    rec = np.where(eob[:, None, None] > 0, (pred + y).clip(0, 255), pred)
+    raster = q[:, :ns, :ns].transpose(0, 2, 1).reshape(B, ns * ns)
+    return raster, eob, rec.astype(np.uint8), bits
+
+
+def _residual_blocks(n, seed, B=4):
+    """B blocks of side n: a smooth low-frequency residual, noise, a
+    bright one (source near 255 over a dark prediction), none."""
+    rng = np.random.default_rng(seed)
+    rr, cc = np.mgrid[0:n, 0:n]
+    pred = rng.integers(0, 256, (B, n, n))
+    src = pred.copy()
+    src[0] = (pred[0] + np.rint(40 * np.cos(np.pi * (rr + 0.5) / n)
+                                * np.cos(np.pi * (cc + 0.5) / n))
+              ).clip(0, 255)
+    src[1] = (pred[1] + rng.integers(-60, 61, (n, n))).clip(0, 255)
+    if B > 2:
+        pred[2] = rng.integers(0, 40, (n, n))
+        src[2] = rng.integers(215, 256, (n, n))
+    return src.astype(np.int32), pred.astype(np.uint8)
+
+
+def _two_frame_pq(qindex):
+    return np.stack([WT.pq_array(Q.build_plane_quant(q, 0, 0))
+                     for q in (qindex, qindex + 30)]).astype(np.int32)
+
+
+@pytest.mark.parametrize("qindex", [20, 100, 200])
+@pytest.mark.parametrize("n,tx", RESIDUAL_SIZES)
+def test_code_residual_kernel_data_path_model_matches_the_plain_version(
+        n, tx, qindex):
+    """What the residual kernel does, modelled in numpy from
+    residual_tables() alone (its layout, passes, shifts, clamps,
+    quantizer with the log scale, dropout, rate estimate, inverse), equals
+    code_residual_plain at every size (tx64 keeps its corner), with a
+    quantizer a frame over two frames: levels, eob and recon exact, bits
+    to 1e-6 relative (their float sums are taken in another order)."""
+    src, pred = _residual_blocks(n, n + qindex)
+    pq = _two_frame_pq(qindex)
+    lam = np.repeat([IT.rd_lambda(qindex), IT.rd_lambda(qindex + 30)], 2) \
+        .astype(np.float32)
+    for dropout in (True, False):
+        want = K.code_residual_plain(
+            torch.from_numpy(src), torch.from_numpy(pred), tx,
+            torch.from_numpy(pq), torch.from_numpy(lam), dropout)
+        got = _residual_model(src, pred, n, pq, lam, dropout)
+        for g, w in zip(got[:3], want[:3]):
+            np.testing.assert_array_equal(g, w.numpy())
+        np.testing.assert_allclose(got[3], want[3].numpy(), rtol=1e-6,
+                                   atol=0)
+    if qindex == 100:
+        assert 0 < got[1][0] < min(n, 32) ** 2   # a smooth block's tail
+        assert got[1][3] == 0 and (got[2][3] == pred[3]).all()
+
+
+@pytest.mark.parametrize("no_dropout", [False, True])
+@pytest.mark.parametrize("n,tx", RESIDUAL_SIZES)
+def test_code_residual_plain_matches_jax_composition(monkeypatch, n, tx,
+                                                     no_dropout):
+    """ops/inter._code_residual (kernels.code_residual on CPU tensors)
+    against the JAX package's composition of inter_tpu.py:445-473 and
+    :703-737 (fwd_txfm2d_batched, _quantize_jnp, _rd_dropout, _est_bits,
+    inv_txfm2d_add_batched, the select), eagerly, one frame at a time: 8
+    blocks over two frames with their own quantizer and lambda, with
+    AVL_NO_DROPOUT unset and set (both read at the call).  Integers equal;
+    bits to 2.9e-7 relative (ROADMAP Queue 3, float sums in another
+    order)."""
+    from aom_av1_lavish_tpu.bitstream import constants as jc
+    from aom_av1_lavish_tpu.bitstream import tables
+    from aom_av1_lavish_tpu.common import coeffs as JCF
+    from aom_av1_lavish_tpu.ops import txfm_jax as TJ
+
+    if no_dropout:
+        monkeypatch.setenv("AVL_NO_DROPOUT", "1")
+    else:
+        monkeypatch.delenv("AVL_NO_DROPOUT", raising=False)
+    src, pred = _residual_blocks(n, 3 * n, B=8)
+    pred[3] = src[3]                                 # zero residuals
+    src[6], pred[6] = 255, 0                         # the brightest
+    pq = _two_frame_pq(60)
+    lams = [IT.rd_lambda(60), IT.rd_lambda(90)]
+    lam = np.repeat(lams, 4).astype(np.float32)
+    got = IT._code_residual(torch.from_numpy(src), torch.from_numpy(pred),
+                            tx, torch.from_numpy(pq), torch.from_numpy(lam))
+    scan = np.asarray(tables.scan(tx, jc.DCT_DCT))
+    ns = min(n, 32)
+    dc = np.arange(ns * ns) == 0
+    for f in range(2):
+        sl = slice(4 * f, 4 * f + 4)
+        s_, p_ = jnp.asarray(src[sl]), jnp.asarray(pred[sl])
+        coeff = TJ.fwd_txfm2d_batched(s_ - p_.astype(jnp.int32), tx,
+                                      jc.DCT_DCT)
+        qc, dqc = WJ._quantize_jnp(coeff, WJ._PQ(pq[f]),
+                                   JCF._tx_scale(tx), dc)
+        qc, dqc = IJ._rd_dropout(qc, dqc, scan, np.argsort(scan), lams[f],
+                                 tx)
+        bits, eob = WJ._est_bits(qc, scan)
+        rec = TJ.inv_txfm2d_add_batched(dqc, p_, tx, jc.DCT_DCT)
+        rec = jnp.where((eob > 0)[:, None, None], rec, p_)
+        for g, w in zip(got[:3], (qc, eob, rec)):
+            np.testing.assert_array_equal(g[sl].numpy(), np.asarray(w))
+        np.testing.assert_allclose(got[3][sl].numpy(), np.asarray(bits),
+                                   rtol=2.9e-7, atol=0)
+    eob = got[1].numpy()
+    assert eob[3] == 0 and eob[6] > 0
+    assert got[2].dtype == torch.uint8 and got[1].dtype == torch.int64
+
+
+def test_code_residual_on_cpu_launches_nothing_and_checks_arguments():
+    """CPU tensors run code_residual_plain and launch nothing; bad
+    arguments raise before anything runs."""
+    src, pred = _residual_blocks(16, 5)
+    pq = torch.from_numpy(_two_frame_pq(80))
+    lam = torch.full((4,), 30.0)
+    s, p = torch.from_numpy(src), torch.from_numpy(pred)
+    K.reset_launches()
+    got = K.code_residual(s, p, 2, pq, lam)
+    want = K.code_residual_plain(s, p, 2, pq, lam)
+    assert all(v == 0 for v in K.LAUNCHES.values()) and not K.ENTRY_LAUNCHES
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    u8 = K.code_residual(s.to(torch.uint8), p, 2, pq, lam)
+    for g, w in zip(u8, want):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="tx must be"):
+        K.code_residual(s, p, 0, pq, lam)
+    with pytest.raises(ValueError, match=r"src must be int32 or uint8"):
+        K.code_residual(s[:, :8, :8], p, 2, pq, lam)
+    with pytest.raises(ValueError, match="src must be int32 or uint8"):
+        K.code_residual(s.long(), p, 2, pq, lam)
+    with pytest.raises(ValueError, match="pred must be uint8"):
+        K.code_residual(s, p.int(), 2, pq, lam)
+    with pytest.raises(ValueError, match="F dividing B"):
+        K.code_residual(s, p, 2, torch.cat([pq, pq[:1]]), lam)
+    with pytest.raises(ValueError, match="pq must be int32"):
+        K.code_residual(s, p, 2, pq.long(), lam)
+    with pytest.raises(ValueError, match=r"lam must be float32 \(4,\)"):
+        K.code_residual(s, p, 2, pq, lam[:3])
+    meta = torch.empty((4, 16, 16), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="expected all on the CPU"):
+        K.code_residual(s, meta, 2, pq, lam)
