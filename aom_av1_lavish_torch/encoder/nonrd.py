@@ -246,7 +246,8 @@ def encode_realtime_tpu_ivf(path: str, frames, width: int, height: int,
     (av1/encoder/nonrd_pickmode.c:3035): the "fast mode decision" is an
     exhaustive batched search."""
     from ..bitstream.ivf import write_ivf
-    from ..ops.inter import DeviceRtEncoder
+    from ..ops.inter import DeviceRtEncoder, rt_frames
+    from ..utils.profiler import profile
     from .encoder import make_sequence_header
     from .inter import make_inter_frame_header
     from .lossy import make_lossy_frame_header
@@ -259,6 +260,7 @@ def encode_realtime_tpu_ivf(path: str, frames, width: int, height: int,
     payloads = []
     slots = [None] * 8
 
+    @profile("encode/rt_emit")
     def emit(i, f, handle):
         res_raw = dev.realize(handle)
         fh = make_inter_frame_header(sh, qindex, deblock=False)
@@ -274,7 +276,7 @@ def encode_realtime_tpu_ivf(path: str, frames, width: int, height: int,
     # the copy and the host emit behind device compute
     from collections import deque
     pending = deque()
-    for i, f in enumerate(frames):
+    for i, f in enumerate(rt_frames(frames)):
         if i == 0:
             fh = make_lossy_frame_header(sh, qindex)
             enc = TorchAllIntraEncoder(sh, fh, device=dev.device)

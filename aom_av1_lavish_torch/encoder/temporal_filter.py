@@ -32,7 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
-from ..ops.inter import _edge_pad, _untile, block_cost_volume, to_device
+from ..ops.inter import (_edge_pad, _untile, block_cost_volume, to_device,
+                         to_host)
 from ..ops.kernels import gather_windows
 
 BLOCK = 16
@@ -117,7 +118,7 @@ def _filter_plane(center, neighbors, sigma2, device):
     filtered with its own motion search."""
     H, W = center.shape
     Hc, Wc = (H // BLOCK) * BLOCK, (W // BLOCK) * BLOCK
-    host = center.cpu().numpy() if isinstance(center, torch.Tensor) \
+    host = to_host(center, "tf/src") if isinstance(center, torch.Tensor) \
         else np.asarray(center)
     if not (Hc and Wc):
         return host.astype(np.uint8)
@@ -126,7 +127,7 @@ def _filter_plane(center, neighbors, sigma2, device):
     aligned = _align(nb, _block_mvs(c, nb), BLOCK)
     out = _blend(c.to(torch.float32), aligned.to(torch.float32), sigma2)
     res = host.astype(np.float32).copy()
-    res[:Hc, :Wc] = out.cpu().numpy()
+    res[:Hc, :Wc] = to_host(out, "tf")
     return np.clip(np.round(res), 0, 255).astype(np.uint8)
 
 
@@ -175,9 +176,9 @@ def temporal_filter(frames, center_idx: int, qindex: int,
         [up(frames[i][2], H2, W2) for i in neigh], s2)
     out = []
     for src, f in zip((y, u, v), filt):
-        f = f.cpu().numpy()
+        f = to_host(f, "tf")
         if isinstance(src, torch.Tensor):
-            src = src.cpu().numpy()
+            src = to_host(src, "tf/src")
         if f.shape == src.shape:
             res = f
         else:

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops.inter import block_cost_volume, to_device
+from ..ops.inter import block_cost_volume, to_device, to_host
 
 BLOCK = 16
 RADIUS = 8
@@ -87,7 +87,7 @@ def _group_costs(pairs, device=None):
         # the MV components (|mv| <= RADIUS) ride along as float32
         out.append(torch.cat([intra[..., None], inter[..., None],
                               mv.to(torch.float32)], -1))
-    host = torch.stack(out).cpu().numpy()
+    host = to_host(torch.stack(out), "tpl")
     return [(host[i, ..., 0].astype(np.float64),
              host[i, ..., 1].astype(np.float64),
              host[i, ..., 2:].astype(np.int32)) for i in range(len(pairs))]

@@ -20,6 +20,7 @@ from ..common import txtype as TT
 from .lossy import LossyAllIntraEncoder, make_lossy_frame_header
 from .encoder import make_sequence_header
 from ..ops.deblock import deblock_fixed16
+from ..ops.inter import to_host
 from ..ops.wavefront import WavefrontEncoder
 from ..utils.profiler import profile
 
@@ -94,7 +95,7 @@ class TorchAllIntraEncoder(LossyAllIntraEncoder):
                 fh.filter_level[0], fh.filter_level_u, fh.filter_level_v,
                 sharpness=fh.sharpness_level)
             for view, p in zip(views, planes):
-                view[...] = p.cpu().numpy()
+                view[...] = to_host(p, "key/deblock")
             return
         super()._filter_recon(search=search)
 

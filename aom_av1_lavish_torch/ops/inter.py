@@ -48,6 +48,7 @@ from .. import resolve_device
 from ..bitstream import constants as c
 from ..common import interpred as IP
 from ..common import quant as Q
+from ..utils.profiler import count, profile
 
 from .deblock import deblock_leafmask
 from .graphs import program
@@ -663,6 +664,16 @@ def to_device(plane, device):
     return torch.as_tensor(np.ascontiguousarray(plane), device=device)
 
 
+def to_host(t, site: str):
+    """t.cpu().numpy() inside section encode/fetch, its bytes counted
+    under fetch_bytes and fetch_bytes/<site>."""
+    with profile("encode/fetch"):
+        host = t.cpu().numpy()
+    count("fetch_bytes", host.nbytes)
+    count(f"fetch_bytes/{site}", host.nbytes)
+    return host
+
+
 def quant_state(qindexes, device):
     """A group's quantizer state on `device`, a frame of it per qindex:
     its quantizer arrays (three (F, 5, 2) int32 tensors, one per plane),
@@ -729,8 +740,9 @@ def fetch_group(raws, recs):
     (or None)."""
     host, recons = [], []
     for raw, rec in zip(raws, recs):
-        arrs = {k: v.cpu().numpy() for k, v in raw.items()}
-        planes = None if rec is None else [p.cpu().numpy() for p in rec]
+        arrs = {k: to_host(v, f"group/{k}") for k, v in raw.items()}
+        planes = None if rec is None else [to_host(p, "group/recon")
+                                           for p in rec]
         for f, filt in enumerate(arrs.pop("filt")):
             host.append({k: v[f] for k, v in arrs.items()})
             host[-1]["filt"] = int(filt)
@@ -830,7 +842,7 @@ class DeviceChainEncoder:
         if recon == "all":
             return fetch_group([raw], [rec])
         raws, recons = fetch_group([raw], [None])
-        recons[-1] = tuple(p[-1].cpu().numpy() for p in rec)
+        recons[-1] = tuple(to_host(p[-1], "group/recon") for p in rec)
         return raws, recons
 
 
@@ -917,8 +929,8 @@ class DeviceInterEncoder:
         q = self._q
         out = _p_frame_fn((H, W, len(ref_planes_list), True, False))(
             *src, *q["pq"], q["lam"], q["hp"], *refs)
-        self.recon = split_recon(out[4].cpu().numpy(), H, W)
-        self.res_raw = {k: v.cpu().numpy() for k, v in
+        self.recon = split_recon(to_host(out[4], "frame/recon"), H, W)
+        self.res_raw = {k: to_host(v, f"frame/{k}") for k, v in
                         zip(("r16", "r32", "r64", "lvl"), out)}
         return self.res_raw
 
@@ -960,6 +972,18 @@ def p_step(src, state, q):
     return out[0], out[1], tuple(out[2:])
 
 
+def rt_frames(frames):
+    """The realtime path's frames, each pull of the next one (the wait for
+    the camera) inside section encode/rt_source."""
+    source = iter(frames)
+    while True:
+        with profile("encode/rt_source"):
+            f = next(source, None)
+        if f is None:
+            return
+        yield f
+
+
 class DeviceRtEncoder:
     """Streaming P-frame encoder with device-resident reference state:
     per frame, upload the source, run one device step and copy only the
@@ -977,19 +1001,22 @@ class DeviceRtEncoder:
         self.state = prep_ref_state(planes, self.device)
         self._rec_d = None
 
+    @profile("encode/rt_step")
     def encode_frame_async(self, src_planes):
         """Enqueue one frame's device step and the copy of its result
-        rows; returns a handle for `realize()`.  The next frame may be
-        enqueued at once (its reference is the device-resident state),
-        overlapping this frame's copy with that compute: on the card the
-        rows go to pinned host memory without blocking and an event marks
-        the copy's end."""
+        rows (counted under fetch_bytes/rt_rows); returns a handle for
+        `realize()`.  The next frame may be enqueued at once (its
+        reference is the device-resident state), overlapping this frame's
+        copy with that compute: on the card the rows go to pinned host
+        memory without blocking and an event marks the copy's end."""
         H, W = src_planes[0].shape[:2]
         src = [to_device(p, self.device) for p in _crop(src_planes, H, W)]
         r16, rec, state = p_step(src, self.state, self._q)
         # the next step overwrites the program's outputs: keep copies
         self._rec_d = rec.clone()
         self.state = tuple(t.clone() for t in state)
+        count("fetch_bytes", r16.nbytes)
+        count("fetch_bytes/rt_rows", r16.nbytes)
         if r16.device.type != "cuda":
             return r16, None
         host = torch.empty(r16.shape, dtype=r16.dtype, pin_memory=True)
@@ -999,6 +1026,7 @@ class DeviceRtEncoder:
         return host, done
 
     @staticmethod
+    @profile("encode/rt_realize")
     def realize(handle):
         """The (B, 390) int16 rows of a frame, once its copy is done."""
         rows, done = handle
@@ -1010,4 +1038,4 @@ class DeviceRtEncoder:
         return self.realize(self.encode_frame_async(src_planes))
 
     def fetch_recon(self, H, W):
-        return split_recon(self._rec_d.cpu().numpy(), H, W)
+        return split_recon(to_host(self._rec_d, "rt_recon"), H, W)

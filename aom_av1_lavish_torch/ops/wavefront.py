@@ -295,8 +295,9 @@ class WavefrontEncoder:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
         with profile("key/fetch"):
-            rows = rows.cpu().numpy()
-            recons = [p.cpu().numpy() for p in recon]
+            from .inter import to_host
+            rows = to_host(rows, "key/rows")
+            recons = [to_host(p, "key/recon") for p in recon]
         with profile("key/unpack"):
             Bq, Bcq = B * B, B * B // 4
             out = []

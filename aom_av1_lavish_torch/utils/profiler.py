@@ -15,7 +15,11 @@ Sections nest; disabled (default) the context manager costs one
 attribute check.  Device work should be timed around synchronize
 points by the caller (CUDA launches are asynchronous).  An enabled
 section is also a torch.profiler range of the same name, which puts it on
-the timeline of the device's kernels.
+the timeline of the device's kernels.  Counters (count, counters), such
+as the bytes copied to the host, are kept in the same registry: only
+while enabled, and cleared by reset.  Sections pair by order: in the
+realtime path's one-frame pipeline the k-th encode/rt_step pairs with the
+k-th encode/rt_realize, so no section carries an identifier.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch
 _ENABLED = False
 _TIMES: dict = defaultdict(float)
 _COUNTS: dict = defaultdict(int)
+_COUNTERS: dict = defaultdict(int)
 
 
 def enable(on: bool = True) -> None:
@@ -39,6 +44,16 @@ def enable(on: bool = True) -> None:
 def reset() -> None:
     _TIMES.clear()
     _COUNTS.clear()
+    _COUNTERS.clear()
+
+
+def count(name: str, n: int = 1) -> None:
+    if _ENABLED:
+        _COUNTERS[name] += n
+
+
+def counters() -> dict:
+    return dict(_COUNTERS)
 
 
 @contextmanager

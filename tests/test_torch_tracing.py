@@ -1,0 +1,249 @@
+"""The port's tracing (utils/profiler sections and counters) on the
+encode paths, on the CPU at 96x64: the realtime pipeline's sections
+(encode/rt_step, rt_realize, rt_emit, rt_source) and their order, the
+counter of bytes copied to the host (ops.inter.to_host and the realtime
+rows) against the sizes the fetched tensors' shapes give, and streams
+byte-identical with the sections on and off."""
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from aom_av1_lavish_torch.encoder.gop import TorchGopEncoder
+from aom_av1_lavish_torch.encoder.nonrd import encode_realtime_tpu_ivf
+from aom_av1_lavish_torch.ops import inter as IT
+from aom_av1_lavish_torch.utils import profiler
+from aom_av1_lavish_torch.utils.clips import make_frames
+
+W, H = 96, 64
+#: the GOP of tests/test_torch_gop.py's "both" configuration: the
+#: wavefront KEY, then TPL, the ARF's temporal filter, the ARF and the
+#: chain over one GF group of 7
+KW = dict(qindex=120, gf_length=8, use_tpu=True, enable_cdef=False,
+          cpu_used=8)
+N_GOP, N_RT = 8, 6
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def sections():
+    """The port's sections on, from an empty registry; off and empty
+    after."""
+    profiler.reset()
+    profiler.enable(True)
+    yield profiler
+    profiler.enable(False)
+    profiler.reset()
+
+
+def _realtime(path, n=N_RT):
+    encode_realtime_tpu_ivf(str(path), make_frames(n, W, H), W, H,
+                            qindex=90, device="cpu")
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _gop():
+    enc = TorchGopEncoder(W, H, device="cpu", **KW)
+    enc.enable_tpl = enc.enable_tf = True
+    return enc.encode_sequence(make_frames(N_GOP, W, H))
+
+
+@pytest.fixture(scope="module")
+def rt_traced(tmp_path_factory):
+    """A 6-frame realtime encode under a CPU torch.profiler with the
+    sections on -> (stream bytes, {section: sorted [(start, end)]},
+    counters)."""
+    path = tmp_path_factory.mktemp("rt") / "on.ivf"
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    profiler.reset()
+    profiler.enable(True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            data = _realtime(path)
+    finally:
+        profiler.enable(False)
+        torch.set_num_threads(n)
+    spans = {}
+    for ev in prof.events():
+        if ev.name.startswith("encode/rt_"):
+            spans.setdefault(ev.name, []).append(
+                (ev.time_range.start, ev.time_range.end))
+    counters = profiler.counters()
+    profiler.reset()
+    return data, {k: sorted(v) for k, v in spans.items()}, counters
+
+
+def test_realtime_sections_one_per_p_frame(rt_traced):
+    """Each of the 5 P frames opens one rt_step, one rt_realize and one
+    rt_emit; every pull of a frame (6, and the one that finds the stream
+    ended) opens an rt_source."""
+    _, spans, _ = rt_traced
+    for name in ("encode/rt_step", "encode/rt_realize", "encode/rt_emit"):
+        assert len(spans[name]) == N_RT - 1, name
+    assert len(spans["encode/rt_source"]) == N_RT + 1
+
+
+def test_realtime_realize_inside_emit_and_after_its_step(rt_traced):
+    """Each rt_realize lies inside an rt_emit, and the k-th rt_step ends
+    before the k-th rt_realize starts: in the one-frame pipeline the
+    sections pair by order."""
+    _, spans, _ = rt_traced
+    emits = spans["encode/rt_emit"]
+    for s, e in spans["encode/rt_realize"]:
+        assert any(es <= s and e <= ee for es, ee in emits)
+    steps, realizes = spans["encode/rt_step"], spans["encode/rt_realize"]
+    for (_, step_end), (real_start, _) in zip(steps, realizes):
+        assert step_end <= real_start
+    # frame k+1's step is enqueued before frame k's rows are waited for
+    for (s_next, _), (r_start, _) in zip(steps[1:], realizes):
+        assert s_next < r_start
+
+
+def test_realtime_rows_counted(rt_traced):
+    """The realtime path copies the KEY's wave rows and reconstruction,
+    then only each P frame's result rows, (B, 390) int16, counted under
+    fetch_bytes/rt_rows."""
+    _, _, counters = rt_traced
+    key = expected_fetch_bytes(W, H, [], False)
+    rows = (N_RT - 1) * (H // 16) * (W // 16) * 390 * 2
+    want = {"fetch_bytes/key/rows": key["key/rows"],
+            "fetch_bytes/key/recon": key["key/recon"],
+            "fetch_bytes/rt_rows": rows}
+    assert counters == dict(want, fetch_bytes=sum(want.values()))
+
+
+def test_realtime_stream_equal_with_sections_on_and_off(rt_traced, tmp_path):
+    data, _, _ = rt_traced
+    assert not profiler.counters()
+    assert _realtime(tmp_path / "off.ivf") == data
+
+
+def expected_fetch_bytes(w, h, groups, key_deblock):
+    """Bytes a device GOP copies to the host, by site, from the shapes of
+    what it fetches: for each GF group of L frames (an ARF and L - 1
+    chained P frames) TPL's 2L - 2 (cur, ref) cost pairs ((h/16, w/16, 4)
+    float32 each), the temporal filter's three float32 planes and the
+    ARF's three source planes, each inter frame's rows r16 (B16, 390), r32
+    (B32, 1542), r64 (B64, 3078) int16, its level map (h/16, w/16) int8
+    and its filter pick (int64), and the deblocked planes of the ARF and
+    of the chain's last frame; for the KEY its wave rows (B16, 390) int16,
+    its reconstruction and, where the device deblocks it, its deblocked
+    planes.  Planes 4:2:0 uint8."""
+    b16, b32, b64 = ((h // n) * (w // n) for n in (16, 32, 64))
+    planes = w * h * 3 // 2
+    inter = sum(groups)
+    out = {"key/rows": b16 * 390 * 2, "key/recon": planes,
+           "tpl": sum(2 * L - 2 for L in groups if L >= 2) * b16 * 16,
+           "tf": sum(L >= 3 for L in groups) * planes * 4,
+           "tf/src": sum(L >= 3 for L in groups) * planes,
+           "group/r16": inter * b16 * 390 * 2,
+           "group/r32": inter * b32 * 1542 * 2,
+           "group/r64": inter * b64 * 3078 * 2,
+           "group/lvl": inter * b16, "group/filt": inter * 8,
+           "group/recon": sum(1 + (L >= 2) for L in groups) * planes}
+    if key_deblock:
+        out["key/deblock"] = planes
+    return out
+
+
+def test_expected_fetch_bytes_of_the_1080p_sequence():
+    """The figure gop.fetch_mb_per_frame reads on the VOD cell: a 120-frame
+    1920x1088 sequence (a KEY and GF groups of 8 x 14 and 7), 18.7 MB a
+    frame."""
+    want = expected_fetch_bytes(1920, 1088, [8] * 14 + [7], True)
+    assert want["group/r16"] + want["group/r32"] + want["group/r64"] \
+        == 119 * (6_364_800 + 6_291_360 + 3_139_560)
+    assert sum(want.values()) == 2_249_462_032
+
+
+def test_gop_fetch_bytes_equal_the_shapes(sections):
+    """Every copy to the host of the device GOP goes through to_host:
+    fetch_bytes, and each site's fetch_bytes/<site>, equal the sizes the
+    fetched tensors' shapes give (at 96x64 the KEY is deblocked on the
+    host)."""
+    _gop()
+    got = sections.counters()
+    want = expected_fetch_bytes(W, H, [N_GOP - 1], False)
+    assert got.pop("fetch_bytes") == sum(want.values())
+    assert got == {f"fetch_bytes/{k}": v for k, v in want.items()}
+    times = sections.times()
+    assert "encode/fetch" in times and "key/fetch" in times
+
+
+def test_gop_equal_with_sections_on_and_off_and_counts_only_when_on():
+    """With the sections off nothing is counted; the GOP's payloads are
+    the same with them on."""
+    profiler.reset()
+    off = _gop()
+    assert profiler.counters() == {} and profiler.times() == {}
+    profiler.enable(True)
+    try:
+        on = _gop()
+    finally:
+        profiler.enable(False)
+    assert profiler.counters()["fetch_bytes"] > 0
+    profiler.reset()
+    assert profiler.counters() == {}
+    assert on == off
+
+
+def test_count_and_reset(sections):
+    sections.count("a")
+    sections.count("a", 4)
+    assert sections.counters() == {"a": 5}
+    sections.enable(False)
+    sections.count("a", 100)
+    assert sections.counters() == {"a": 5}
+    sections.reset()
+    assert sections.counters() == {}
+
+
+def test_to_host_returns_what_cpu_numpy_returns(sections):
+    t = torch.arange(12, dtype=torch.int16).reshape(3, 4)
+    got = IT.to_host(t, "site")
+    np.testing.assert_array_equal(got, t.cpu().numpy())
+    assert got.dtype == np.int16
+    assert sections.counters() == {"fetch_bytes": 24,
+                                   "fetch_bytes/site": 24}
+    assert sections.times()["encode/fetch"] >= 0
+
+
+def test_rt_frames_yields_each_frame_once(sections):
+    frames = [(np.full((2, 2), i, np.uint8),) for i in range(3)]
+    got = list(IT.rt_frames(iter(frames)))
+    assert [f[0][0, 0] for f in got] == [0, 1, 2]
+    assert all(a is b for a, b in zip(got, frames))
+    assert profiler._COUNTS["encode/rt_source"] == 4
+
+
+def test_section_open_when_torch_profiler_stops():
+    """A section that the torch profiler's stop falls inside (the live
+    benchmark stops its trace inside the camera's frame pull) closes
+    without error."""
+    profiler.reset()
+    profiler.enable(True)
+    prof = profile(activities=[ProfilerActivity.CPU])
+    prof.start()
+
+    def camera():
+        yield 1
+        profiler.enable(False)
+        prof.stop()
+        yield 2
+    try:
+        assert list(IT.rt_frames(camera())) == [1, 2]
+    finally:
+        profiler.enable(False)
+    names = [ev.name for ev in prof.events()]
+    assert "encode/rt_source" in names
+    profiler.reset()
