@@ -262,20 +262,19 @@ def encode_realtime_tpu_ivf(path: str, frames, width: int, height: int,
 
     @profile("encode/rt_emit")
     def emit(i, f, handle):
-        res_raw = dev.realize(handle)
+        # the header and the encoder's set-up read no rows: build them
+        # while the step is still on the device, then wait for the rows
         fh = make_inter_frame_header(sh, qindex, deblock=False)
         enc = TpuInterFrameEncoder(sh, fh, slots)
         enc._results = None     # dicts built lazily on emitter fallback
         enc._external_results = True
         enc._external_recon = None
-        enc._res_raw = res_raw
+        enc._res_raw = dev.realize(handle)
         payloads.append((enc.encode_frame(f), i))
 
-    # one-frame pipeline: frame i+1 is enqueued (its reference is the
-    # device-resident state) before frame i's results are read, hiding
-    # the copy and the host emit behind device compute
-    from collections import deque
-    pending = deque()
+    # each P frame is emitted right after its own step, before the next
+    # frame is pulled: on a paced source its packet never waits for the
+    # next camera frame
     for i, f in enumerate(rt_frames(frames)):
         if i == 0:
             fh = make_lossy_frame_header(sh, qindex)
@@ -288,11 +287,7 @@ def encode_realtime_tpu_ivf(path: str, frames, width: int, height: int,
             slots[0] = tuple(p.copy() for p in rec)
             dev.reset_ref(rec)
             continue
-        pending.append((i, f, dev.encode_frame_async(f)))
-        if len(pending) > 1:
-            emit(*pending.popleft())
-    while pending:
-        emit(*pending.popleft())
+        emit(i, f, dev.encode_frame_async(f))
     write_ivf(path, payloads, width, height, fps[0], fps[1])
 
 

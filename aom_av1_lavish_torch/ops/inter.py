@@ -1005,10 +1005,11 @@ class DeviceRtEncoder:
     def encode_frame_async(self, src_planes):
         """Enqueue one frame's device step and the copy of its result
         rows (counted under fetch_bytes/rt_rows); returns a handle for
-        `realize()`.  The next frame may be enqueued at once (its
-        reference is the device-resident state), overlapping this frame's
-        copy with that compute: on the card the rows go to pinned host
-        memory without blocking and an event marks the copy's end."""
+        `realize()`.  On the card the rows go to pinned host memory
+        without blocking and an event marks the copy's end, so the caller
+        can do host work that needs no rows (the frame header, the
+        emitter's set-up) while the step runs.  The next frame's step
+        reads only the device-resident state."""
         H, W = src_planes[0].shape[:2]
         src = [to_device(p, self.device) for p in _crop(src_planes, H, W)]
         r16, rec, state = p_step(src, self.state, self._q)
@@ -1028,9 +1029,12 @@ class DeviceRtEncoder:
     @staticmethod
     @profile("encode/rt_realize")
     def realize(handle):
-        """The (B, 390) int16 rows of a frame, once its copy is done."""
+        """The (B, 390) int16 rows of a frame, once its copy is done.
+        On the card, counts under rt_rows_waited 1 when the copy was still
+        under way as the rows were asked for, else 0."""
         rows, done = handle
         if done is not None:
+            count("rt_rows_waited", int(not done.query()))
             done.synchronize()
         return rows.numpy()
 

@@ -17,9 +17,9 @@ points by the caller (CUDA launches are asynchronous).  An enabled
 section is also a torch.profiler range of the same name, which puts it on
 the timeline of the device's kernels.  Counters (count, counters), such
 as the bytes copied to the host, are kept in the same registry: only
-while enabled, and cleared by reset.  Sections pair by order: in the
-realtime path's one-frame pipeline the k-th encode/rt_step pairs with the
-k-th encode/rt_realize, so no section carries an identifier.
+while enabled, and cleared by reset.  Sections pair by order: on the
+realtime path the k-th encode/rt_step pairs with the k-th
+encode/rt_realize, so no section carries an identifier.
 """
 
 from __future__ import annotations

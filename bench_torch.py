@@ -372,9 +372,8 @@ def _lowdelay(cell, frames, path, dev):
 
 
 def _realtime(cell, frames, path, dev):
-    """The realtime stream pipelines one frame (frame i + 1 is enqueued
-    before frame i is emitted), so a P frame has no window of its own: a
-    run's P frames take (run - KEY) / (frames - 1) seconds each."""
+    """The realtime stream's P frames are timed together: a run's P
+    frames take (run - KEY) / (frames - 1) seconds each."""
     from aom_av1_lavish_torch.encoder.nonrd import encode_realtime_tpu_ivf
     from aom_av1_lavish_torch.encoder.tpu_intra import TorchAllIntraEncoder
 

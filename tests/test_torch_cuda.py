@@ -419,6 +419,30 @@ def test_cuda_realtime_rows_come_back_through_pinned_memory(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_realtime_counts_the_rows_it_waited_for(cuda_device, tmp_path):
+    """A 4-frame 1080p realtime encode with the sections on: each P
+    frame's realize adds 0 or 1 to rt_rows_waited, so the counter lies
+    between 0 and the 3 P frames, and each P frame's rows are counted."""
+    from aom_av1_lavish_torch.encoder.nonrd import encode_realtime_tpu_ivf
+    from aom_av1_lavish_torch.utils import profiler
+    from aom_av1_lavish_torch.utils.clips import make_frames
+    w, h = 1920, 1088
+    frames = make_frames(4, w, h)
+    profiler.reset()
+    profiler.enable(True)
+    try:
+        encode_realtime_tpu_ivf(str(tmp_path / "rt.ivf"), frames, w, h,
+                                qindex=135, device=cuda_device)
+        counters = profiler.counters()
+    finally:
+        profiler.enable(False)
+        profiler.reset()
+    assert 0 <= counters["rt_rows_waited"] <= 3
+    rows = (h // 16) * (w // 16) * 390 * 2
+    assert counters["fetch_bytes/rt_rows"] == 3 * rows
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mesh", [False, True])
 def test_cuda_fpmt_gop_writes_the_stream_of_the_cpu_run(cuda_device, mesh):
     """The frame-parallel GOP at 96x64 on the card (mesh=None, or a

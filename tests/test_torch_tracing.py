@@ -95,8 +95,7 @@ def test_realtime_sections_one_per_p_frame(rt_traced):
 
 def test_realtime_realize_inside_emit_and_after_its_step(rt_traced):
     """Each rt_realize lies inside an rt_emit, and the k-th rt_step ends
-    before the k-th rt_realize starts: in the one-frame pipeline the
-    sections pair by order."""
+    before the k-th rt_realize starts: the sections pair by order."""
     _, spans, _ = rt_traced
     emits = spans["encode/rt_emit"]
     for s, e in spans["encode/rt_realize"]:
@@ -104,9 +103,42 @@ def test_realtime_realize_inside_emit_and_after_its_step(rt_traced):
     steps, realizes = spans["encode/rt_step"], spans["encode/rt_realize"]
     for (_, step_end), (real_start, _) in zip(steps, realizes):
         assert step_end <= real_start
-    # frame k+1's step is enqueued before frame k's rows are waited for
-    for (s_next, _), (r_start, _) in zip(steps[1:], realizes):
-        assert s_next < r_start
+    # frame k's emit ends before frame k + 1 is pulled (the pulls are the
+    # KEY's, then one a P frame): no packet waits for the next frame
+    for (_, emit_end), (pull_start, _) in zip(
+            emits, spans["encode/rt_source"][2:]):
+        assert emit_end <= pull_start
+
+
+def test_realtime_emits_each_frame_before_pulling_the_next(rt_traced,
+                                                           tmp_path,
+                                                           monkeypatch):
+    """With a generator for `frames`, at each pull of frame k + 1 the P
+    frames' encode_frame has returned k times (frame 0 is the KEY), and
+    the stream is the same as from a list."""
+    from aom_av1_lavish_torch.encoder.tpu_inter import TpuInterFrameEncoder
+    returned = [0]
+    orig = TpuInterFrameEncoder.encode_frame
+
+    def spy(self, *a, **k):
+        out = orig(self, *a, **k)
+        returned[0] += 1
+        return out
+
+    monkeypatch.setattr(TpuInterFrameEncoder, "encode_frame", spy)
+    pulled = []
+
+    def camera():
+        for f in make_frames(N_RT, W, H):
+            pulled.append(returned[0])
+            yield f
+        pulled.append(returned[0])
+
+    path = tmp_path / "gen.ivf"
+    encode_realtime_tpu_ivf(str(path), camera(), W, H, qindex=90,
+                            device="cpu")
+    assert pulled == [0] + list(range(N_RT))
+    assert path.read_bytes() == rt_traced[0]
 
 
 def test_realtime_rows_counted(rt_traced):
