@@ -19,8 +19,9 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops.inter import PADR, _edge_pad, _tiles, to_device
+from ..ops.inter import PADR, _edge_pad, _tiles, to_device, to_host
 from ..ops.kernels import ssd_surface_plane
+from ..utils.profiler import profile
 
 
 @dataclass
@@ -45,10 +46,12 @@ class FirstPassStats:
                       for f, v in zip(fields(cls), a)})
 
 
-def _fp_frame(src_y, prev_pad):
-    """One frame's sums: src_y (H, W) uint8 and the PADR-padded previous
-    frame -> (intra error, coded error, inter share, moving share, summed
-    |mv|, moving count or 1) as a (6,) float32 tensor."""
+def fp_blocks(src_y, prev_pad):
+    """Each 16x16 block's first-pass values: src_y (H, W) uint8 and the
+    PADR-padded previous frame -> dict of (B,) tensors in raster order:
+    intra (DC-pred error), inter (the error of the motion the gating
+    kept: the best of the +-16 surface or zero motion), is_inter,
+    moving, mv_y, mv_x (the surface's first minimum, full-pel)."""
     H, W = src_y.shape
     nby, nbx = H // 16, W // 16
     B = nby * nbx
@@ -62,21 +65,29 @@ def _fp_frame(src_y, prev_pad):
                             PADR - 16)
     flat = ssd.reshape(B, -1)
     best, bidx = flat.min(1)
-    mv_y = bidx // 33 - 16
-    mv_x = bidx % 33 - 16
     zero_ssd = ssd[:, 16, 16]
     moved = best + 256.0 < zero_ssd   # motion must beat zero-mv bias
     inter_err = torch.where(moved, best, zero_ssd)
     is_inter = inter_err * 1.12 < intra_err   # firstpass gating flavor
-    coded = torch.where(is_inter, inter_err, intra_err)
-    moving = moved & is_inter
-    mv_mag = torch.where(moving, mv_y.abs().to(torch.float32)
-                         + mv_x.abs().to(torch.float32), 0.0)
+    return dict(intra=intra_err, inter=inter_err, is_inter=is_inter,
+                moving=moved & is_inter, mv_y=bidx // 33 - 16,
+                mv_x=bidx % 33 - 16)
+
+
+def _fp_frame(src_y, prev_pad):
+    """One frame's sums from fp_blocks: (intra error, coded error, inter
+    share, moving share, summed |mv|, moving count or 1) as a (6,)
+    float32 tensor."""
+    b = fp_blocks(src_y, prev_pad)
+    is_inter, moving = b["is_inter"], b["moving"]
+    coded = torch.where(is_inter, b["inter"], b["intra"])
+    mv_mag = torch.where(moving, b["mv_y"].abs().to(torch.float32)
+                         + b["mv_x"].abs().to(torch.float32), 0.0)
     # the shares as XLA evaluates the reference's mean: the count times the
     # float32 reciprocal of the number of blocks
-    inv_b = float(np.float32(1.0) / np.float32(B))
+    inv_b = float(np.float32(1.0) / np.float32(is_inter.numel()))
     return torch.stack([
-        intra_err.sum(), coded.sum(),
+        b["intra"].sum(), coded.sum(),
         is_inter.sum().to(torch.float32) * inv_b,
         moving.sum().to(torch.float32) * inv_b, mv_mag.sum(),
         moving.sum().to(torch.float32).clamp(min=1.0)])
@@ -85,18 +96,23 @@ def _fp_frame(src_y, prev_pad):
 def first_pass(frames, device=None) -> list:
     """Run the stats pass over (y, u, v) frames on `device` (the card when
     None); returns [FirstPassStats] (one per frame; frame 0 is
-    intra-only)."""
+    intra-only).  Section gop/first_pass; the frames' sums stay on the
+    device and come to the host in one copy (site fp)."""
     device = resolve_device(device)
-    stats = []
+    sums = []
     prev = None
-    for i, f in enumerate(frames):
-        H = (f[0].shape[0] // 16) * 16
-        W = (f[0].shape[1] // 16) * 16
-        y = to_device(f[0][:H, :W], device)
-        ref = y if prev is None else prev
-        ie, ce, pi, pm, mv, nmv = _fp_frame(y, _edge_pad(ref, PADR)) \
-            .cpu().tolist()
-        if prev is None:
+    with profile("gop/first_pass"):
+        for f in frames:
+            H = (f[0].shape[0] // 16) * 16
+            W = (f[0].shape[1] // 16) * 16
+            y = to_device(f[0][:H, :W], device)
+            ref = y if prev is None else prev
+            sums.append(_fp_frame(y, _edge_pad(ref, PADR)))
+            prev = y
+        rows = to_host(torch.stack(sums), "fp").tolist() if sums else []
+    stats = []
+    for i, (ie, ce, pi, pm, mv, nmv) in enumerate(rows):
+        if i == 0:
             stats.append(FirstPassStats(frame=i, intra_error=ie,
                                         coded_error=ie, pcnt_inter=0.0,
                                         pcnt_motion=0.0, mv_mag=0.0))
@@ -104,7 +120,6 @@ def first_pass(frames, device=None) -> list:
             stats.append(FirstPassStats(
                 frame=i, intra_error=ie, coded_error=ce, pcnt_inter=pi,
                 pcnt_motion=pm, mv_mag=mv / nmv))
-        prev = y
     return stats
 
 

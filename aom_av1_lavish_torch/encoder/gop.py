@@ -40,7 +40,7 @@ from ..bitstream import headers as H
 from ..common.loopfilter import pick_filter_level_from_q
 from ..ops.inter import DeviceChainEncoder, to_device
 from ..runtime import native_available
-from ..utils.profiler import profile
+from ..utils.profiler import count, profile
 from .encoder import make_sequence_header
 from .inter import InterFrameEncoder, make_inter_frame_header
 from .lossy import LossyAllIntraEncoder, make_lossy_frame_header
@@ -498,6 +498,14 @@ class GopEncoder:
         q_low, q_high = rc.cfg.best_q, rc.cfg.worst_q
         over = under = False
         st0 = self._slot_state()
+        # every encode after the first is a recode: section gop/recode,
+        # counted under recode_attempts/<kind> (0 when none was needed)
+        count(f"recode_attempts/{kind}", 0)
+
+        def again(qq):
+            count(f"recode_attempts/{kind}")
+            with profile("gop/recode"):
+                return encode_fn(qq)
         p = encode_fn(q)
         best = (abs(len(p) * 8 - target), p, q)
         for _ in range(rc.cfg.max_recodes):
@@ -522,14 +530,14 @@ class GopEncoder:
                 break
             q = nq
             self._restore_slot_state(st0)
-            p = encode_fn(q)
+            p = again(q)
             if abs(len(p) * 8 - target) < best[0]:
                 best = (abs(len(p) * 8 - target), p, q)
         if best[1] is not p:
             # the ref slot holds the LAST attempt's recon; re-encode at
             # the winning q so payload and reference state agree
             self._restore_slot_state(st0)
-            best = (best[0], encode_fn(best[2]), best[2])
+            best = (best[0], again(best[2]), best[2])
         return best[1], best[2]
 
     def _adapt_kf_boost(self, frames) -> None:

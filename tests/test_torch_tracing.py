@@ -2,16 +2,22 @@
 encode paths, on the CPU at 96x64: the realtime pipeline's sections
 (encode/rt_step, rt_realize, rt_emit, rt_source) and their order, the
 counter of bytes copied to the host (ops.inter.to_host and the realtime
-rows) against the sizes the fetched tensors' shapes give, and streams
-byte-identical with the sections on and off."""
+rows) against the sizes the fetched tensors' shapes give, the two-pass
+encode's first pass and recode loop (gop/first_pass, gop/recode, the
+recode_attempts counters), and streams byte-identical with the sections
+on and off."""
 
 import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from aom_av1_lavish_torch.encoder.gop import TorchGopEncoder
+from aom_av1_lavish_torch.encoder.gop import (GopEncoder, TorchGopEncoder,
+                                              encode_gop_ivf,
+                                              encode_twopass_ivf)
 from aom_av1_lavish_torch.encoder.nonrd import encode_realtime_tpu_ivf
+from aom_av1_lavish_torch.encoder.ratectrl import (MODE_VBR,
+                                                   RateControlConfig)
 from aom_av1_lavish_torch.ops import inter as IT
 from aom_av1_lavish_torch.utils import profiler
 from aom_av1_lavish_torch.utils.clips import make_frames
@@ -227,6 +233,63 @@ def test_gop_equal_with_sections_on_and_off_and_counts_only_when_on():
     profiler.reset()
     assert profiler.counters() == {}
     assert on == off
+
+
+#: VBR two-pass encodes at 96x64 that recode: (frames, target bits a
+#: second) where the KEY recodes, and where the ARFs do
+RECODING = [(8, 20_000), (12, 60_000)]
+
+
+@pytest.mark.parametrize("n,bps", RECODING)
+def test_twopass_sections_and_recode_counters(sections, monkeypatch,
+                                              tmp_path, n, bps):
+    """A VBR two-pass encode opens gop/first_pass once and gop/recode
+    around each encode of a KEY or an ARF after its first; the counters
+    recode_attempts/key and recode_attempts/arf count those encodes; the
+    first pass's sums come to the host in one copy of 6 float32 a
+    frame."""
+    made = {"key": [], "arf": []}
+    recode = GopEncoder._recode
+
+    def counting(self, kind, display_idx, q, encode_fn):
+        calls = [0]
+
+        def fn(qq):
+            calls[0] += 1
+            return encode_fn(qq)
+        try:
+            return recode(self, kind, display_idx, q, fn)
+        finally:
+            if kind in made:
+                made[kind].append(calls[0])
+
+    monkeypatch.setattr(GopEncoder, "_recode", counting)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        encode_twopass_ivf(str(tmp_path / "vbr.ivf"), make_frames(n, W, H),
+                           W, H, device="cpu",
+                           rc_cfg=RateControlConfig(mode=MODE_VBR,
+                                                    target_bps=bps,
+                                                    fps=30.0), **KW)
+    names = [ev.name for ev in prof.events()]
+    got = sections.counters()
+    again = {k: sum(v) - len(v) for k, v in made.items()}
+    assert made["key"] and made["arf"] and sum(again.values()) > 0
+    assert got["recode_attempts/key"] == again["key"]
+    assert got["recode_attempts/arf"] == again["arf"]
+    assert names.count("gop/recode") == sum(again.values())
+    assert names.count("gop/first_pass") == 1
+    assert got["fetch_bytes/fp"] == 6 * 4 * n
+
+
+def test_fixed_q_gop_opens_no_recode(sections, tmp_path):
+    """With a fixed q the recode loop returns before its section and
+    counters: encode_gop_ivf's path is as it was."""
+    encode_gop_ivf(str(tmp_path / "q.ivf"), make_frames(N_GOP, W, H), W, H,
+                   device="cpu", **KW)
+    assert "gop/recode" not in sections.times()
+    assert "gop/first_pass" not in sections.times()
+    assert not [k for k in sections.counters()
+                if k.startswith("recode_attempts/")]
 
 
 def test_count_and_reset(sections):
