@@ -666,12 +666,43 @@ def to_device(plane, device):
 
 def to_host(t, site: str):
     """t.cpu().numpy() inside section encode/fetch, its bytes counted
-    under fetch_bytes and fetch_bytes/<site>."""
-    with profile("encode/fetch"):
-        host = t.cpu().numpy()
-    count("fetch_bytes", host.nbytes)
-    count(f"fetch_bytes/{site}", host.nbytes)
+    under fetch_bytes and fetch_bytes/<site> (fetch_all of one copy)."""
+    return fetch_all([(t, site)])[0]
+
+
+def to_pinned(t):
+    """Enqueue the copy of card tensor t into a pinned host tensor of its
+    own, without blocking, on t's device's current stream -> the host
+    tensor (its bytes counted under fetch_pinned_bytes).  torch's caching
+    host allocator hands a block out again only once its tensor is freed
+    and its copy done, so an array a caller holds keeps its values."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    count("fetch_pinned_bytes", host.nbytes)
     return host
+
+
+def fetch_all(items):
+    """[(tensor, site), ...] -> their numpy arrays, fetched inside one
+    section encode/fetch, each array's bytes counted under fetch_bytes and
+    fetch_bytes/<site>.  A CPU tensor gives t.cpu().numpy().  A CUDA
+    tensor's copy is enqueued by to_pinned; the host waits once, on an
+    event after the last copy of each device."""
+    hosts, streams = [], {}
+    with profile("encode/fetch"):
+        for t, _ in items:
+            if t.device.type != "cuda":
+                hosts.append(t.cpu())
+                continue
+            hosts.append(to_pinned(t))
+            streams[t.device] = torch.cuda.current_stream(t.device)
+        for stream in streams.values():
+            stream.record_event().synchronize()
+        arrs = [h.numpy() for h in hosts]
+    for a, (_, site) in zip(arrs, items):
+        count("fetch_bytes", a.nbytes)
+        count(f"fetch_bytes/{site}", a.nbytes)
+    return arrs
 
 
 def quant_state(qindexes, device):
@@ -732,22 +763,35 @@ def p_frame_deblocked(src, refs, q, lf, sharpness, interp):
     return raw, rec
 
 
-def fetch_group(raws, recs):
+def fetch_group(raws, recs, last_recon: bool = False):
     """A group's device results on the host, one entry a frame: each raw
     of raws (p_frame_deblocked's, with a leading frame axis) as one numpy
     dict a frame with `filt` an int, and each of recs (its frames'
     deblocked (F, h, w) planes, or None) as (y, u, v) numpy planes a frame
-    (or None)."""
+    (or None; with last_recon only the last frame of each raw gets its
+    planes, the others None).  Every copy is enqueued before the one wait
+    (fetch_all)."""
+    items = []
+    for raw, rec in zip(raws, recs):
+        items += [(v, f"group/{k}") for k, v in raw.items()]
+        if rec is not None:
+            items += [(p[-1] if last_recon else p, "group/recon")
+                      for p in rec]
+    got = iter(fetch_all(items))
     host, recons = [], []
     for raw, rec in zip(raws, recs):
-        arrs = {k: to_host(v, f"group/{k}") for k, v in raw.items()}
-        planes = None if rec is None else [to_host(p, "group/recon")
-                                           for p in rec]
-        for f, filt in enumerate(arrs.pop("filt")):
+        arrs = {k: next(got) for k in raw}
+        planes = None if rec is None else [next(got) for _ in rec]
+        filts = arrs.pop("filt")
+        for f, filt in enumerate(filts):
             host.append({k: v[f] for k, v in arrs.items()})
             host[-1]["filt"] = int(filt)
-            recons.append(None if planes is None
-                          else tuple(p[f] for p in planes))
+            if planes is None or (last_recon and f + 1 < len(filts)):
+                recons.append(None)
+            elif last_recon:
+                recons.append(tuple(planes))
+            else:
+                recons.append(tuple(p[f] for p in planes))
     return host, recons
 
 
@@ -839,11 +883,7 @@ class DeviceChainEncoder:
             *srcs, *q["pq"], q["lam"], q["hp"],
             deblock_levels(lf_levels, L, self.device),
             *(p for r in refs for p in r)))
-        if recon == "all":
-            return fetch_group([raw], [rec])
-        raws, recons = fetch_group([raw], [None])
-        recons[-1] = tuple(to_host(p[-1], "group/recon") for p in rec)
-        return raws, recons
+        return fetch_group([raw], [rec], last_recon=recon != "all")
 
 
 def pack_frame_results(res_buf, W):
@@ -1006,9 +1046,9 @@ class DeviceRtEncoder:
         """Enqueue one frame's device step and the copy of its result
         rows (counted under fetch_bytes/rt_rows); returns a handle for
         `realize()`.  On the card the rows go to pinned host memory
-        without blocking and an event marks the copy's end, so the caller
-        can do host work that needs no rows (the frame header, the
-        emitter's set-up) while the step runs.  The next frame's step
+        without blocking (to_pinned) and an event marks the copy's end, so
+        the caller can do host work that needs no rows (the frame header,
+        the emitter's set-up) while the step runs.  The next frame's step
         reads only the device-resident state."""
         H, W = src_planes[0].shape[:2]
         src = [to_device(p, self.device) for p in _crop(src_planes, H, W)]
@@ -1020,8 +1060,7 @@ class DeviceRtEncoder:
         count("fetch_bytes/rt_rows", r16.nbytes)
         if r16.device.type != "cuda":
             return r16, None
-        host = torch.empty(r16.shape, dtype=r16.dtype, pin_memory=True)
-        host.copy_(r16, non_blocking=True)
+        host = to_pinned(r16)
         done = torch.cuda.Event()
         done.record()
         return host, done

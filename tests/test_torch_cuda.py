@@ -440,6 +440,137 @@ def test_cuda_realtime_counts_the_rows_it_waited_for(cuda_device, tmp_path):
     assert 0 <= counters["rt_rows_waited"] <= 3
     rows = (h // 16) * (w // 16) * 390 * 2
     assert counters["fetch_bytes/rt_rows"] == 3 * rows
+    assert counters["fetch_pinned_bytes"] == counters["fetch_bytes"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8, torch.int16,
+                                   torch.int64, torch.float32])
+@pytest.mark.parametrize("contiguous", [True, False])
+def test_cuda_to_host_lands_in_pinned_memory(cuda_device, dtype,
+                                             contiguous):
+    """to_host of a card tensor: byte for byte t.cpu().numpy() (shape,
+    dtype, bytes; a strided source too), the array backed by pinned host
+    memory, its bytes counted under fetch_bytes and fetch_pinned_bytes."""
+    from aom_av1_lavish_torch.ops.inter import to_host
+    from aom_av1_lavish_torch.utils import profiler
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    t = torch.randint(-128, 128, (64, 390), generator=g,
+                      device=cuda_device).to(dtype)
+    if not contiguous:
+        t = t[::2, 5:200:3].t()
+    profiler.reset()
+    profiler.enable(True)
+    try:
+        got = to_host(t, "site")
+        counters = profiler.counters()
+    finally:
+        profiler.enable(False)
+        profiler.reset()
+    want = t.cpu().numpy()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert got.tobytes() == want.tobytes()
+    assert torch.from_numpy(got).is_pinned()
+    assert counters == {"fetch_bytes": want.nbytes,
+                        "fetch_bytes/site": want.nbytes,
+                        "fetch_pinned_bytes": want.nbytes}
+
+
+@pytest.mark.cuda
+def test_cuda_to_host_array_held_keeps_its_values(cuda_device):
+    """An array a caller still holds keeps its values across three later
+    fetches of the same shape (each into its own pinned block; a block is
+    handed out again only once its array is gone)."""
+    from aom_av1_lavish_torch.ops.inter import to_host
+    shape = (8160, 390)
+    held = to_host(torch.full(shape, 11, dtype=torch.int16,
+                              device=cuda_device), "site")
+    for v in (22, 33, 44):
+        later = to_host(torch.full(shape, v, dtype=torch.int16,
+                                   device=cuda_device), "site")
+        assert (later == v).all()
+        assert not np.shares_memory(later, held)
+        del later
+    assert (held == 11).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("last_recon", [False, True])
+def test_cuda_fetch_group_of_a_1080p_group_equals_pageable(cuda_device,
+                                                           last_recon):
+    """One 1080p chain group's results (7 frames over LAST and the ARF,
+    the program's own output tensors) through fetch_group equal the
+    pageable route (t.cpu().numpy() an array), array for array, each in
+    pinned memory, all copies waited for in one encode/fetch section."""
+    import chip_smoke
+    from aom_av1_lavish_torch.ops import inter as IT
+    from aom_av1_lavish_torch.utils import profiler
+    from aom_av1_lavish_torch.utils.clips import make_frames
+
+    w, h, qs = 1920, 1088, [120] * 7
+    frames = make_frames(len(qs) + 2, w, h)
+    (prog, args), = [(p, a) for name, p, a in chip_smoke.program_cases(
+        cuda_device, frames, qs, w, h) if name == "chain"]
+    raw, rec = IT.group_results(prog(*args))
+    profiler.reset()
+    profiler.enable(True)
+    try:
+        host, recons = IT.fetch_group([raw], [rec], last_recon=last_recon)
+        fetches = profiler._COUNTS["encode/fetch"]
+        counters = profiler.counters()
+    finally:
+        profiler.enable(False)
+        profiler.reset()
+    assert fetches == 1
+    assert counters["fetch_pinned_bytes"] == counters["fetch_bytes"]
+    pageable = {k: v.cpu().numpy() for k, v in raw.items()}
+    planes = [p.cpu().numpy() for p in rec]
+    assert len(host) == len(recons) == len(qs)
+    for f in range(len(qs)):
+        assert host[f]["filt"] == int(pageable["filt"][f])
+        for k in ("r16", "r32", "r64", "lvl"):
+            assert host[f][k].dtype == pageable[k].dtype
+            np.testing.assert_array_equal(host[f][k], pageable[k][f])
+            assert torch.from_numpy(host[f][k]).is_pinned()
+        if last_recon and f + 1 < len(qs):
+            assert recons[f] is None
+            continue
+        for got, p in zip(recons[f], planes):
+            np.testing.assert_array_equal(got, p[f])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,h", [(96, 64), (1920, 1088)])
+def test_cuda_gop_fetches_land_in_pinned_memory(cuda_device, w, h):
+    """An 8-frame GOP with TPL and the temporal filter on the card
+    (cpu_used=8 for the wavefront KEY, the filter set on the encoder, as
+    the benchmark's VOD cells run it): every byte fetched is counted under
+    fetch_pinned_bytes, and at 96x64 every fetch_bytes counter and the
+    payloads equal the CPU run's (which counts nothing pinned)."""
+    from aom_av1_lavish_torch.encoder.gop import TorchGopEncoder
+    from aom_av1_lavish_torch.utils import profiler
+    from aom_av1_lavish_torch.utils.clips import make_frames
+
+    frames = make_frames(8, w, h)
+    got = {}
+    for device in ((cuda_device, "cpu") if w < 1920 else (cuda_device,)):
+        enc = TorchGopEncoder(w, h, device=device, qindex=120,
+                              gf_length=8, use_tpu=True, enable_cdef=False,
+                              cpu_used=8)
+        enc.enable_tpl = enc.enable_tf = True
+        profiler.reset()
+        profiler.enable(True)
+        try:
+            payloads = enc.encode_sequence(frames)
+            got[str(device)] = payloads, profiler.counters()
+        finally:
+            profiler.enable(False)
+            profiler.reset()
+    payloads, counters = got[str(cuda_device)]
+    assert all(payloads) and counters["fetch_bytes/tpl"] > 0
+    assert counters.pop("fetch_pinned_bytes") == counters["fetch_bytes"]
+    if "cpu" in got:
+        assert got["cpu"] == (payloads, counters)
 
 
 @pytest.mark.cuda

@@ -313,6 +313,108 @@ def test_to_host_returns_what_cpu_numpy_returns(sections):
     assert sections.times()["encode/fetch"] >= 0
 
 
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8, torch.int16,
+                                   torch.int64, torch.float32])
+@pytest.mark.parametrize("contiguous", [True, False])
+def test_to_host_of_a_cpu_tensor_is_its_own_numpy_view(sections, dtype,
+                                                       contiguous):
+    """A CPU tensor takes t.cpu().numpy(): the array is a view of the
+    tensor's own memory (no copy, no pinned memory), and nothing is counted
+    under fetch_pinned_bytes."""
+    t = torch.arange(48).reshape(4, 12).to(dtype)
+    if not contiguous:
+        t = t[:, ::3].t()
+    got = IT.to_host(t, "site")
+    want = t.cpu().numpy()
+    assert got.dtype == want.dtype and got.strides == want.strides
+    np.testing.assert_array_equal(got, want)
+    assert np.shares_memory(got, want)
+    assert sections.counters() == {"fetch_bytes": want.nbytes,
+                                   "fetch_bytes/site": want.nbytes}
+
+
+def _group(seed, F=3, nb=6, h=16, w=24):
+    """A made-up group's device results on the CPU: raw rows, level maps
+    and filter picks with a leading frame axis of F, and F deblocked
+    (y, u, v) planes."""
+    g = torch.Generator().manual_seed(seed)
+    ints = lambda *shape, dtype=torch.int16: torch.randint(  # noqa: E731
+        -300, 300, shape, generator=g).to(dtype)
+    raw = dict(r16=ints(F, nb, 390), r32=ints(F, nb // 4, 390),
+               r64=ints(F, 1, 390), lvl=ints(F, 2, 3, dtype=torch.uint8),
+               filt=ints(F, dtype=torch.int64))
+    rec = tuple(torch.randint(0, 256, (F, a, b), generator=g,
+                              dtype=torch.uint8)
+                for a, b in ((h, w), (h // 2, w // 2), (h // 2, w // 2)))
+    return raw, rec
+
+
+@pytest.mark.parametrize("last_recon", [False, True])
+def test_fetch_group_of_cpu_tensors_equals_one_fetch_an_array(
+        sections, last_recon):
+    """fetch_group on CPU tensors, two raws (one with planes, one
+    without): each frame's arrays and planes equal t.cpu().numpy() of its
+    slice, with last_recon only the last frame of a raw has planes; the
+    bytes are counted a site as one fetch an array counts them, and none
+    under fetch_pinned_bytes."""
+    (raw_a, rec_a), (raw_b, _) = _group(1), _group(2, F=2)
+    host, recons = IT.fetch_group([raw_a, raw_b], [rec_a, None],
+                                  last_recon=last_recon)
+    assert len(host) == len(recons) == 5
+    for f, (raw, j) in enumerate([(raw_a, 0), (raw_a, 1), (raw_a, 2),
+                                  (raw_b, 0), (raw_b, 1)]):
+        assert host[f].keys() == raw.keys()
+        assert host[f]["filt"] == int(raw["filt"][j])
+        for k in ("r16", "r32", "r64", "lvl"):
+            np.testing.assert_array_equal(host[f][k], raw[k][j].numpy())
+    for f in range(3):
+        if last_recon and f < 2:
+            assert recons[f] is None
+            continue
+        for got, p in zip(recons[f], rec_a):
+            np.testing.assert_array_equal(got, p[f].numpy())
+    assert recons[3] is None and recons[4] is None
+    want = {}
+    for k in raw_a:
+        want[f"fetch_bytes/group/{k}"] = raw_a[k].numpy().nbytes \
+            + raw_b[k].numpy().nbytes
+    want["fetch_bytes/group/recon"] = sum(
+        (p[-1] if last_recon else p).numpy().nbytes for p in rec_a)
+    got = sections.counters()
+    assert got.pop("fetch_bytes") == sum(want.values())
+    assert got == want
+    assert sections.times()["encode/fetch"] >= 0
+    assert profiler._COUNTS["encode/fetch"] == 1
+
+
+def test_encode_chain_last_recon_is_the_last_of_all(sections):
+    """DeviceChainEncoder.encode_chain on the CPU: with recon="last" the
+    raws equal recon="all"'s, every recon but the last is None and the
+    last equals "all"'s last; one encode/fetch section a chain, and only
+    the last frame's planes counted under group/recon."""
+    frames = make_frames(4, W, H)
+    enc = IT.DeviceChainEncoder("cpu")
+    out = {}
+    for recon in ("all", "last"):
+        sections.reset()
+        out[recon] = enc.encode_chain(frames[1:], [120] * 3, frames[0],
+                                      recon=recon)
+        out[recon, "counters"] = sections.counters()
+        assert profiler._COUNTS["encode/fetch"] == 1
+    (raws_a, recs_a), (raws_l, recs_l) = out["all"], out["last"]
+    for a, b in zip(raws_a, raws_l):
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+    assert recs_l[:2] == [None, None]
+    for a, b in zip(recs_a[-1], recs_l[-1]):
+        np.testing.assert_array_equal(a, b)
+    plane = W * H * 3 // 2
+    assert out["all", "counters"]["fetch_bytes/group/recon"] == 3 * plane
+    assert out["last", "counters"]["fetch_bytes/group/recon"] == plane
+    assert "fetch_pinned_bytes" not in out["last", "counters"]
+
+
 def test_rt_frames_yields_each_frame_once(sections):
     frames = [(np.full((2, 2), i, np.uint8),) for i in range(3)]
     got = list(IT.rt_frames(iter(frames)))

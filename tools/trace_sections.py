@@ -7,10 +7,10 @@
 runs it, that also prints what the port's tracing (utils/profiler) kept
 of the traced part: each section's seconds and calls, every counter
 (fetch_bytes, the bytes copied to the host, and fetch_bytes/<site> by
-site), and the checks below of the trace.  Prints the run's lines, its
-result line, then one JSON line {"sections": {name: seconds}, "calls":
-{name: n}, "counters": {...}, "checks": {...}};
-with --out, appends both JSON lines to that file too.  From the
+site), the checks below of the trace, and the pinned host memory held.
+Prints the run's lines, its result line, then one JSON line {"sections":
+{name: seconds}, "calls": {name: n}, "counters": {...}, "checks": {...},
+"host_pinned": {...}}; with --out, appends both JSON lines to that file too.  From the
 checkout's root:
 
     python3 tools/trace_sections.py --workload rt_live.call_1080p30 \\
@@ -75,8 +75,23 @@ def traced(workload, seed, seconds, device=None, bench=None):
         harness.per_layer = per_layer
     kept = {"sections": profiler.times(), "calls": dict(profiler._COUNTS),
             "counters": profiler.counters(),
-            "checks": checks(seen["trace"])}
+            "checks": checks(seen["trace"]), "host_pinned": host_pinned()}
     return result, lines, kept
+
+
+def host_pinned() -> dict:
+    """What torch's caching host allocator held since the process began
+    (the pinned memory the copies to the host land in): its bytes at the
+    peak and now, as blocks of rounded size, and the blocks it pinned; {}
+    without a card or without the allocator's statistics."""
+    import torch
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if not torch.cuda.is_available() or stats is None:
+        return {}
+    got = stats()
+    return {k: got.get(k) for k in ("allocated_bytes.peak",
+                                     "allocated_bytes.current",
+                                     "active_bytes.peak", "num_host_alloc")}
 
 
 def main(argv=None) -> int:
