@@ -1,35 +1,33 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (aom_av1_lavish_torch) on one GPU.
+"""Checks of the PyTorch/CUDA port (aom_av1_lavish_torch) on one GPU.
 
-    python3 chip_smoke.py [--warm N] [--profile] [--before DIR [DIR ...]]
+    python3 chip_smoke.py
+
+It takes no options.  The port is timed by benchmark/ (BENCHMARK.json,
+benchmark/run.py) and, for one traced run, tools/trace_sections.py; this
+script checks.
 
 1. Builds the hand-written CUDA kernels (ops/csrc/*.cu) into
    build/torch_kernels/ and holds each kernel entry against its plain
    PyTorch version on the card at the shapes of the 1080p slice,
    requiring exact equality, and times both with CUDA events (and the
-   kernel once more from a CUDA graph, without the host).  Each kernel's
-   bound (the least time the card could take: its bytes at the
-   memory rate or its operations at the peak rate, whichever is larger)
-   is computed from the case's tensors.  K4's fused entry wave_encode
-   (one wave of the wavefront KEY a launch) is held to its plain version
-   too: every integer output exact, the float32 costs to 1e-6 relative;
-   and so is its fused entry for the P frames, code_residual (one plane's
-   residual coding at one transform size a launch, at each of the nine
-   shapes of a 1080p P frame and of an FPMT group): levels, eob and recon
-   exact except in blocks whose tail-dropout cut is a float near-tie
-   (counted and printed), bits to 1e-6 relative.
-   The frame-axis forms that a frame-parallel group launches (K1 and K2
-   over the 6 P frames' sources against one reference, K4 with a quantizer
-   per frame) are also held against one launch a frame, and at one frame
-   against the single-frame form.
-2. Times the call paths that the plane-form entries of K2 and K3 and the
-   fused forms of K1 and K4 replaced (cut windows -> int32 -> ssd_surface;
-   gather -> int32 -> convolve_8tap; nine gathers each with its subtract,
-   square and sum; a wave as three planes of torch ops around three
-   quantizer launches) beside the new forms, in turns, on the same inputs;
-   with --before DIR... (checkouts of other commits) also each one's K2
-   plane kernel beside this one's at K2's headline shapes.
-   Then holds each P-frame program (ops/graphs.DeviceProgram: a CUDA graph
+   kernel once more from a CUDA graph, without the host): the one record
+   of each kernel alone on the card.  Each case's bound (the least time
+   the card could take: its bytes at the memory rate or its operations
+   at the peak rate, whichever is larger) is computed from the case's
+   tensors against the card's peaks in benchmark/work.py.  K4's fused
+   entry wave_encode (one wave of the wavefront KEY a launch) is held to
+   its plain version too: every integer output exact, the float32 costs
+   to 1e-6 relative; and so is its fused entry for the P frames,
+   code_residual (one plane's residual coding at one transform size a
+   launch, at each of the nine shapes of a 1080p P frame and of an FPMT
+   group): levels, eob and recon exact except in blocks whose
+   tail-dropout cut is a float near-tie (counted and printed), bits to
+   1e-6 relative.  The frame-axis forms that a frame-parallel group
+   launches (K1 and K2 over the 6 P frames' sources against one
+   reference, K4 with a quantizer per frame) are also held against one
+   launch a frame, and at one frame against the single-frame form.
+2. Holds each P-frame program (ops/graphs.DeviceProgram: a CUDA graph
    captured once a key and replayed) at 1920x1088 against its plain
    version, the eager function it captured, on two successive groups of
    inputs, every output bit for bit and one replay's launch counts against
@@ -38,23 +36,19 @@
    two realtime steps; with each program's capture seconds, replay and
    plain milliseconds, device kernel runs and memory.
 3. Runs the slice in two configurations: the 8-frame 1920x1088 inter-GOP
-   encode of the repo's benchmark clip (KEY + a GF group of 7: hidden ARF
-   + 6 chained P frames) with qindex 120 and CDEF off, first at cpu_used 8
+   encode of the repo's clip (KEY + a GF group of 7: hidden ARF + 6
+   chained P frames) with qindex 120 and CDEF off, first at cpu_used 8
    (TPL and the temporal filter off) and then with cpu_used unset, the
    repo's default (TPL and the ARF temporal filter on), each with the
    launch counters reset just before it; every kernel must have launched
-   during each, and TPL and the filter must have gone through the plane
-   form of K2 and the gather form of K1 only.  Then bench_torch.py's main
-   cell (the same default-configuration encode through encode_gop_ivf) runs
-   once, its cold run and one warm run, through bench_torch's runner: the
-   same bytes in both, its launches equal to EXPECTED["default"], its
-   stream decoded; its record is printed.
+   during each, the launches must equal EXPECTED, TPL and the filter must
+   have gone through the plane form of K2 and the gather form of K1 only,
+   and the GOP's profiler sections must have opened.
 4. Encodes both configurations at a smaller size (352x288 at cpu_used 8;
    768x576 for the default, the smallest 4:3 size whose KEY takes the
    wavefront path as it does at 1080p) and decodes the streams with the
    port's decoder; the decoder's reference slots must equal the encoder's
    recon slots byte for byte.
-
 5. Drives the other device paths, each with the launch counters reset just
    before it and read just after, each decoded with the port's decoder
    and held against the encoder's recon (or, lossless, the source):
@@ -71,7 +65,7 @@
    and realtime at 1920x1088, GOPs with short groups (gf_length 2,
    use_arf off) at 352x288, lossless at 1920x1088, the first pass and the
    two-pass encode at 1920x1088, and the batched all-intra entry at
-   1920x1088 with 4 frames beside 1.
+   1920x1088 with 4 frames and with 1.
 6. Runs every one of those paths at 96x64 on the card and on the CPU (and
    the FPMT GOP, ShardedInterGopEncoder and the api.Encoder lossless and
    GOP routes), then the 352x288 cpu_used 8 GOP, on the clip as it is and
@@ -83,18 +77,12 @@
    differing TU and group result are printed) and the first-pass stats
    equal to 1e-5.
 
-With --warm N each configuration's slice is run N more times and the
-stage medians are printed (and N runs of the default configuration with
-frame-parallel groups); with --profile one more default-configuration
-slice and one with frame-parallel groups run under torch.profiler and the
-device time of each hand kernel, the other kernels' runs, the device-busy
-share and the longest idle stretches are printed.  The timing of these
-runs is bench_torch.py's (timed_run, warm_runs, profiled_run).
-
 Only the port is imported: jax and the JAX package are blocked.  Prints the
-card's name and power limit, one JSON line with each kernel's record, and
-as its last line {"ok": true, "device": {...}}.  Exits non-zero, before
-that line, on any failure, and when no CUDA device is available.
+card's name and power limit, the seconds since its start after each
+phase, one JSON line with each kernel's record, and as its last line
+{"ok": true, "device": {...}}.  Exits non-zero, before that line, on any
+failure, and when no CUDA device is available.  tests/test_torch_cuda.py
+and tools/ import its case builders.
 """
 
 from __future__ import annotations
@@ -108,12 +96,35 @@ import sys
 import tempfile
 import time
 
-from bench_torch import (CELLS, EXPECTED, KW_CPU8, KW_DEFAULT, KW_FPMT, MAIN,
-                         N_FRAMES, QINDEX, H, W, gpu_line, instances_of,
-                         profiled_run, run_cell, run_slice, summarize,
-                         timed_run, warm_runs)
+from benchmark.work import MEM_BYTES_PER_S, OPS_PER_S
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+#: the 1080p slice: 8 frames of utils.clips.make_frames, and its
+#: configurations (the repo's default, cpu_used 8, frame-parallel groups)
+W, H, N_FRAMES, QINDEX = 1920, 1088, 8, 120
+KW_DEFAULT = dict(qindex=QINDEX, gf_length=8, use_tpu=True,
+                  enable_cdef=False)
+KW_CPU8 = dict(KW_DEFAULT, cpu_used=8)
+KW_FPMT = dict(KW_DEFAULT, frame_parallel=True)
+#: launches of one 1080p slice (a KEY and one GF group of 7) that the
+#: slice's structure fixes: per (frame, reference) of the ARF and the six P
+#: frames (1 + 6 * 2 = 13) two K2 surfaces and one fused K1 refine; with TPL
+#: and the filter on, 12 TPL pairs and 2 filter neighbours more of K2 and
+#: 2 neighbours x 3 planes of K1's gather form
+EXPECTED = {
+    "cpu_used 8": {"ssd_surface": 26, "gather_windows": 13,
+                   "avl_block_ssd_at": 13, "avl_gather_windows": 0,
+                   "avl_ssd_surface": 0},
+    "default": {"ssd_surface": 26 + 14, "gather_windows": 13 + 6,
+                "avl_block_ssd_at": 13, "avl_gather_windows": 6,
+                "avl_ssd_surface": 0},
+}
+#: K4 in either slice: one fused launch a wave of the KEY (187 waves at
+#: 1080p) and one fused residual coding a plane and level (9) for each of
+#: the 7 chained frames; the plain quantizer entry runs on none of them
+for _exp in EXPECTED.values():
+    _exp.update({"avl_wave_encode": 187, "avl_code_residual": 63,
+                 "avl_quantize_b": 0, "quantize_b_vec": 250})
 #: the largest frame whose KEY takes the device RDO, padded to the 64-pixel
 #: superblock as the trial engine pads it
 RDO_W, RDO_H = 768, 576
@@ -143,16 +154,59 @@ KERNELS = {
     "code_residual": (f"{CSRC}/code_residual.cu", f"{PK}:343",
                       "quantize_b_vec", "avl_code_residual"),
 }
-# Published peaks of one H100 SXM (NVIDIA's data sheet, dense): device
-# memory rate, and operations per second by operand type.  int32 is not in
-# the data sheet; it runs on the CUDA cores, so it gets their float32 rate,
-# which it cannot exceed.
-MEM_BYTES_PER_S = 3.35e12
-OPS_PER_S = {"uint8": 1979e12, "int32": 67e12}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def gpu_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def counted_run(fn):
+    """fn() once on the card, with the kernel launch counters set to 0
+    just before it and the profiler's sections on during it -> (its
+    result, the launches by kernel and by C entry, the names of the
+    sections it opened)."""
+    import torch
+
+    from aom_av1_lavish_torch.ops import kernels as K
+    from aom_av1_lavish_torch.utils import profiler
+
+    profiler.reset()
+    K.reset_launches()
+    profiler.enable()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        profiler.enable(False)
+    return out, dict(K.LAUNCHES, **K.ENTRY_LAUNCHES), set(profiler.times())
+
+
+@contextlib.contextmanager
+def instances_of(cls, method: str):
+    """Collects the instances of `cls` on which `method` is called while
+    the block runs (the encoders an entry point builds inside itself)."""
+    seen = []
+    orig = getattr(cls, method)
+
+    def spy(self, *a, **k):
+        if not any(self is s for s in seen):
+            seen.append(self)
+        return orig(self, *a, **k)
+
+    setattr(cls, method, spy)
+    try:
+        yield seen
+    finally:
+        setattr(cls, method, orig)
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -838,10 +892,11 @@ def check_frame_axis(K, fn: str, label: str, args) -> None:
 def bound_ms(nbytes, operations):
     """(ms, "bytes" | "operations"): the larger of the bytes moved (each
     input read once, each output written once) at the card's memory rate
-    and the operations at the peak rate of their type."""
+    and the operations at the peak rate of their type, both from
+    benchmark/work.py (uint8 operands at its int8 peak)."""
     count, kind = operations
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-    t_ops = count / OPS_PER_S[kind] * 1e3
+    t_ops = count / OPS_PER_S["int8" if kind == "uint8" else kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -932,211 +987,6 @@ def phase_kernels(dev) -> dict:
         f"{first['graph_ms']:.5f} ms (the 1-block wave from a graph) = "
         f"{n_waves * first['graph_ms']:.3f} ms")
     return recs
-
-
-def parent_ssd_plane(parent: str):
-    """K2's plane entry as the checkout `parent` (a directory holding
-    another commit of the repo) has it: its ssd_surface.cu alone, built
-    with this checkout's nvcc flags into build/torch_kernels/ ->
-    fn(src, ref, nby, nbx, bsz, r, oy, ox) -> (nby*nbx, S, S) float32 of
-    one source plane, launched on the current stream and counted
-    nowhere."""
-    import ctypes
-    import hashlib
-
-    import torch
-
-    from aom_av1_lavish_torch.ops import build
-    from aom_av1_lavish_torch.ops import kernels as K
-
-    cu = os.path.join(parent, CSRC, "ssd_surface.cu")
-    with open(cu, "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:16]
-    so = build.BUILD_DIR / f"parent_ssd_surface_{tag}.so"
-    if not so.exists():
-        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        done = subprocess.run([build._nvcc(), *build.ARCH_FLAGS,
-                               *build.NVCC_FLAGS, "-shared", "-o", str(so),
-                               cu], capture_output=True, text=True)
-        if done.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {cu}:\n"
-                               f"{done.stdout[-2000:]}{done.stderr[-2000:]}")
-    fn = ctypes.CDLL(str(so)).avl_ssd_surface_plane
-    fn.argtypes = K._SIGNATURES["avl_ssd_surface_plane"]
-    fn.restype = ctypes.c_int
-
-    def plane(src, ref, nby, nbx, bsz, r, oy, ox):
-        S = 2 * r + 1
-        out = torch.empty((nby * nbx, S, S), dtype=torch.float32,
-                          device=ref.device)
-        rc = fn(out.data_ptr(), src.data_ptr(), ref.data_ptr(),
-                src.shape[-1], ref.shape[1], nby, nbx, bsz, r, oy, ox,
-                src.element_size(), 1, src.shape[-2] * src.shape[-1],
-                torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"{cu}: launch failed with CUDA error {rc}")
-        return out
-    return plane
-
-
-def phase_before_after(dev, parents=()) -> None:
-    """The call paths of the earlier slices beside the entries that
-    replaced them (the plane forms of K2 and K3, the fused forms of K1 and
-    K4), on the same 1080p inputs, timed in turns (before, after, after,
-    before) and reported as the mean of each pair, and once each from a
-    CUDA graph (the device's time without the host's).  For each of
-    `parents` (checkouts of other commits), also its K2 plane kernel beside
-    this one at K2's headline shapes, in turns from CUDA graphs, with the
-    number of surface entries in which the two differ."""
-    import numpy as np
-    import torch
-
-    from aom_av1_lavish_torch.common import interpred as IP
-    from aom_av1_lavish_torch.ops import kernels as K
-
-    rng = np.random.default_rng(1)
-
-    def t(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
-
-    nby, nbx = H // 16, W // 16
-    B = nby * nbx
-    src = t(rng.integers(0, 256, (H, W)).astype(np.uint8))
-    ref = t(rng.integers(0, 256, (H + 2 * PADR, W + 2 * PADR))
-            .astype(np.uint8))
-    src_blk = K.stride_windows(src, 0, 0, nby, nbx, 16, 16).to(torch.int32)
-    src_h = t(rng.integers(0, 1021, (H // 2, W // 2)).astype(np.int32))
-    ref_h = t(rng.integers(0, 1021, (H // 2 + PADR, W // 2 + PADR))
-              .astype(np.int32))
-    src_h_blk = K.stride_windows(src_h, 0, 0, nby, nbx, 8, 8).contiguous()
-    filt = t(np.asarray(IP.SUBPEL_FILTERS_8).astype(np.int32))
-    br = t(rng.integers(0, H + 2 * PADR - 23, B).astype(np.int32))
-    bc = t(rng.integers(0, W + 2 * PADR - 23, B).astype(np.int32))
-    kx = filt[t(rng.integers(0, 16, B))]
-    ky = filt[t(rng.integers(0, 16, B))]
-
-    def k2_before():
-        win = K.stride_windows(ref, PADR - 16, PADR - 16, nby, nbx, 16,
-                               48).to(torch.int32)
-        return K.ssd_surface(src_blk, win, 16, 16)
-
-    def k2_after():
-        return K.ssd_surface_plane(src, ref, nby, nbx, 16, 16, PADR - 16,
-                                   PADR - 16)
-
-    def k2h_before():
-        win = K.stride_windows(ref_h, PADR // 2 - 16, PADR // 2 - 16, nby,
-                               nbx, 8, 40).to(torch.int32)
-        return K.ssd_surface(src_h_blk, win, 8, 16)
-
-    def k2h_after():
-        return K.ssd_surface_plane(src_h, ref_h, nby, nbx, 8, 16,
-                                   PADR // 2 - 16, PADR // 2 - 16)
-
-    def k3_before():
-        region = K.gather_windows(ref, br, bc, 23, 23).to(torch.int32)
-        return K.convolve_8tap(region, kx, ky, 16, 16)
-
-    def k3_after():
-        return K.convolve_8tap_plane(ref, br, bc, kx, ky, 16, 16)
-
-    # the full-pel refine: a 3x3 neighbourhood of origins per block
-    off = torch.tensor([-1, 0, 1], device=dev)
-    y0 = torch.arange(nby, device=dev).repeat_interleave(nbx) * 16
-    x0 = torch.arange(nbx, device=dev).repeat(nby) * 16
-    ny = (PADR + y0 + t(rng.integers(-32, 33, B)))[:, None] \
-        + off.repeat_interleave(3)
-    nx = (PADR + x0 + t(rng.integers(-32, 33, B)))[:, None] + off.repeat(3)
-    ny, nx = ny.to(torch.int32), nx.to(torch.int32)
-    ny_k = [ny[:, k].contiguous() for k in range(9)]
-    nx_k = [nx[:, k].contiguous() for k in range(9)]
-    syf = src_blk.to(torch.float32)
-
-    def k1_before():
-        out = []
-        for k in range(9):
-            blk = K.gather_windows(ref, ny_k[k], nx_k[k], 16, 16)
-            d = blk.to(torch.float32) - syf
-            out.append((d * d).sum((1, 2)))
-        return torch.stack(out, 1)
-
-    def k1_after():
-        return K.block_ssd_at(src, ref, ny, nx, nby, nbx, 16) \
-            .to(torch.float32)
-
-    # one wave of the KEY: three planes of torch ops around three quantizer
-    # launches (wave_encode's plain version on CUDA tensors) | one launch
-    wave = next(c for c in _wave_cases(dev) if "68 blocks x 1 " in c[2])[3]
-    got, want = run_case(K, "wave_encode", wave)
-    err, rel, flipped = wave_error(got, want, wave)
-    if err != 0.0 or not rel <= 1e-6:
-        raise AssertionError("K4 wave: the two call paths differ (integer "
-                             f"outputs by {err:g}, costs by {rel:.3g})")
-
-    def k4_before():
-        return K.wave_encode_plain(*wave)
-
-    def k4_after():
-        return K.wave_encode(*wave)
-
-    def same(a, b):
-        return torch.equal(a, b) or (a.dtype == torch.float32
-                                     and torch.allclose(a, b, rtol=1e-6,
-                                                        atol=0))
-
-    for label, before, after in (
-            ("K4 wave of 68 blocks: 3 x (edges, predictions, transforms, "
-             "quantize_b_vec, rate, inverse, argmin, scatter) | wave_encode",
-             k4_before, k4_after),
-            ("K2 full res: windows -> int32 -> ssd_surface | "
-             "ssd_surface_plane (uint8, bsz16 r16)", k2_before, k2_after),
-            ("K2 half res: windows -> ssd_surface | ssd_surface_plane "
-             "(int32, bsz8 r16)", k2h_before, k2h_after),
-            ("K3 16x16: gather -> int32 -> convolve_8tap | "
-             "convolve_8tap_plane", k3_before, k3_after),
-            ("K1 refine 3x3: 9 x (gather_windows, float, subtract, square, "
-             "sum) | block_ssd_at", k1_before, k1_after)):
-        if not same(before(), after()):
-            raise AssertionError(f"{label}: the two call paths differ")
-        b0 = cuda_ms(before)
-        a0 = cuda_ms(after)
-        a1 = cuda_ms(after)
-        b1 = cuda_ms(before)
-        log(f"before/after B{B} {label}: {(b0 + b1) / 2:.4f} ms "
-            f"({b0:.4f}, {b1:.4f}) | {(a0 + a1) / 2:.4f} ms "
-            f"({a0:.4f}, {a1:.4f}); from a graph {graph_ms(before):.4f} | "
-            f"{graph_ms(after):.4f} ms")
-    log(f"K4 wave, before/after: {flipped} block(s) of 68 whose two lowest "
-        "costs lie within 1e-6 and whose mode differs")
-    if not parents:
-        log("K2 against an earlier checkout: not run (no --before given)")
-    ref8 = t(rng.integers(0, 256, (H + 16, W + 16)).astype(np.uint8))
-    olds = {p: parent_ssd_plane(p) for p in parents}
-    for parent, label, args in ((p, *case) for p in parents for case in (
-            ("full res, uint8 bsz16 r16", (src, ref, nby, nbx, 16, 16,
-                                           PADR - 16, PADR - 16)),
-            ("half res, int32 bsz8 r16", (src_h, ref_h, nby, nbx, 8, 16,
-                                          PADR // 2 - 16, PADR // 2 - 16)),
-            ("TPL and TF, uint8 bsz16 r8 pad 8", (src, ref8, nby, nbx, 16, 8,
-                                                  0, 0)))):
-        old = olds[parent]
-        a, b = K.ssd_surface_plane(*args), old(*args)
-        torch.cuda.synchronize()
-        differ = int((a != b).sum())
-        err = float((a - b).abs().max())
-        if err > 1.0:
-            raise AssertionError(f"K2 {label}: the other checkout's "
-                                 f"surface differs from this one's by {err}"
-                                 " (the rounding moves an entry by 1 at "
-                                 "most)")
-        b0 = graph_ms(lambda: old(*args))
-        a0 = graph_ms(lambda: K.ssd_surface_plane(*args))
-        a1 = graph_ms(lambda: K.ssd_surface_plane(*args))
-        b1 = graph_ms(lambda: old(*args))
-        log(f"K2 {label} B{B}, from a graph: {parent} {(b0 + b1) / 2:.4f} "
-            f"ms ({b0:.4f}, {b1:.4f}) | this checkout {(a0 + a1) / 2:.4f} "
-            f"ms ({a0:.4f}, {a1:.4f}); {differ} of {a.numel()} entries "
-            f"differ, by at most {err:g}")
 
 
 def kernel_runs(fn):
@@ -1306,9 +1156,14 @@ def phase_slice(dev, frames, label, kw) -> dict:
     reset just before it; returns the launch counts."""
     import numpy as np
 
+    from aom_av1_lavish_torch.encoder.gop import TorchGopEncoder
     from aom_av1_lavish_torch.ops import kernels as K
 
-    enc, payloads, secs, launches, stages = run_slice(dev, frames, kw, W, H)
+    def go():
+        enc = TorchGopEncoder(W, H, device=dev, **kw)
+        return enc, enc.encode_sequence(frames)
+
+    (enc, payloads), launches, stages = counted_run(go)
     if len(payloads) != N_FRAMES or not all(payloads):
         raise AssertionError(f"expected {N_FRAMES} non-empty TUs, got "
                              f"{[len(p) for p in payloads]}")
@@ -1325,9 +1180,9 @@ def phase_slice(dev, frames, label, kw) -> dict:
             "key/waves", "key/fetch", "key/deblock", "key/emit"}
     if enc.enable_tpl and enc.enable_tf:
         want |= {"gop/tpl", "gop/temporal_filter"}
-    if not want <= set(stages):
+    if not want <= stages:
         raise AssertionError(f"{label} slice: stages {sorted(stages)} lack "
-                             f"{sorted(want - set(stages))}")
+                             f"{sorted(want - stages)}")
     # the last P frame's recon (LAST slot) against its source
     rec = enc.slots[enc.arf_slot]
     for p, shape in zip(rec, ((H, W), (H // 2, W // 2), (H // 2, W // 2))):
@@ -1339,71 +1194,10 @@ def phase_slice(dev, frames, label, kw) -> dict:
     if not psnr > 30.0:
         raise AssertionError(f"last P frame luma PSNR {psnr:.2f} dB")
     log(f"slice {label} {W}x{H}: {N_FRAMES} TUs, "
-        f"{sum(map(len, payloads))} bytes, "
-        f"{secs:.3f} s, {N_FRAMES / secs:.4f} frames/s, last P luma PSNR "
-        f"{psnr:.2f} dB")
-    for k, v in sorted(stages.items(), key=lambda kv: -kv[1]):
-        log(f"  stage {k:<20} {v:8.3f} s")
+        f"{sum(map(len, payloads))} bytes, last P luma PSNR {psnr:.2f} dB; "
+        f"stages {sorted(stages)}")
     log(f"  launches {json.dumps(launches)}")
     return launches
-
-
-def phase_warm(dev, frames, label, kw, n: int) -> None:
-    """n more runs of the slice in configuration `kw` (bench_torch's warm
-    runs): median, minimum and maximum of the total and of each GOP stage,
-    and the peak device memory."""
-    import torch
-
-    from aom_av1_lavish_torch.encoder.gop import TorchGopEncoder
-
-    torch.cuda.reset_peak_memory_stats()
-    runs = warm_runs(lambda: TorchGopEncoder(W, H, device=dev, **kw)
-                     .encode_sequence(frames), n, dev)
-    rec = summarize(runs)
-    med = rec["median_s"]
-    log(f"warm slice {label} n={n}: median {med:.3f} s (min "
-        f"{rec['min_s']:.3f}, max {rec['max_s']:.3f}, spread "
-        f"{rec['spread']:.3f}), {N_FRAMES / med:.4f} frames/s; runs "
-        f"{[round(x, 3) for x in rec['runs_s']]}")
-    for k, m in rec["stages_s"].items():
-        v = [r.stages[k] for r in runs if k in r.stages]
-        log(f"  warm stage {k:<20} median {m:7.3f} s (min {min(v):.3f}, max "
-            f"{max(v):.3f}), {100 * m / med:.0f}% of the median total")
-    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f}"
-        f" MiB allocated, {torch.cuda.memory_reserved() / 2**20:.1f} MiB "
-        "reserved (the captured programs' pools among it)")
-
-
-def phase_profile(dev, frames, label, kw) -> None:
-    """One slice in configuration `kw` under torch.profiler (bench_torch's
-    profiled run): device time of each hand kernel, of everything else,
-    the device-busy share of the wall clock and the longest idle
-    stretches."""
-    from aom_av1_lavish_torch.encoder.gop import TorchGopEncoder
-
-    run, dev_rec = profiled_run(lambda: TorchGopEncoder(
-        W, H, device=dev, **kw).encode_sequence(frames), dev)
-    log(f"profiled slice {label}: {run.seconds:.3f} s wall clock under the "
-        f"profiler, {dev_rec['kernel_ms']:.2f} ms of device kernels "
-        f"({100 * dev_rec['device_busy']:.1f}% of that wall clock)")
-    hand_ms = 0.0
-    for name, v in dev_rec["hand_ms"].items():
-        hand_ms += v["ms"]
-        log(f"  device {name:<15} {v['ms']:8.3f} ms in {v['runs']} kernel "
-            f"runs ({run.launches[name]} launches counted)")
-    log(f"  device hand kernels together {hand_ms:.3f} ms; other kernels "
-        f"{dev_rec['other_kernels']['ms']:.2f} ms in "
-        f"{dev_rec['other_kernels']['runs']} runs; memcpy/memset "
-        f"{dev_rec['memcpy_memset']['ms']:.2f} ms")
-    for g in dev_rec["idle_gaps"][:3]:
-        log(f"  idle {g['ms']:.3f} ms at {g['at_ms']:.3f} ms in "
-            f"{g['section']}")
-
-
-def phase_bench(dev) -> None:
-    """bench_torch's main cell once: its cold run and one warm run, the
-    launches checked against EXPECTED["default"], the stream decoded."""
-    log(json.dumps(run_cell(CELLS[MAIN], device=dev, warm=1)))
 
 
 def phase_decode(dev, frames, w, h, label, kw) -> None:
@@ -1483,14 +1277,15 @@ def require_slots_equal(what, enc_slots, state) -> int:
     return n
 
 
-def timed_path(label, fn, expected=None, need=()):
+def checked_path(label, fn, expected=None, need=()):
     """Runs one path with the launch counters set to 0 just before it and
     read just after; `expected` fixes counts, `need` names kernels that
-    must have launched -> (fn's result, seconds, launches)."""
+    must have launched -> (fn's result, launches).  Prints its peak device
+    memory and the profiler sections it opened."""
     import torch
 
     torch.cuda.reset_peak_memory_stats()
-    out, secs, launches, stages = timed_run(fn)
+    out, launches, stages = counted_run(fn)
     missing = [k for k in need if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"{label}: kernels not launched: {missing}")
@@ -1498,13 +1293,11 @@ def timed_path(label, fn, expected=None, need=()):
              if launches.get(k, 0) != v}
     if wrong:
         raise AssertionError(f"{label}: launches (counted, expected) {wrong}")
-    log(f"path {label}: {secs:.3f} s; peak device memory "
+    log(f"path {label}: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; launches "
         f"{json.dumps(launches)}")
-    for k, v in sorted(stages.items(), key=lambda kv: -kv[1]):
-        if k.startswith(("gop/", "rdo/", "key/")):
-            log(f"  stage {k:<20} {v:8.3f} s")
-    return out, secs, launches
+    log(f"  stages {sorted(stages)}")
+    return out, launches
 
 
 ALL_KERNELS = ("gather_windows", "ssd_surface", "convolve_8tap",
@@ -1543,7 +1336,7 @@ def phase_rdo_key(dev, tmp) -> dict:
         # 11 luma geometries and their 10 chroma ones (4x4 has none) on
         # each of 2 planes, then a 1-frame ARF chain and 6 P frames, 9
         # quantizer calls each
-        (enc, payloads), _, launches = timed_path(
+        (enc, payloads), launches = checked_path(
             f"device-RDO KEY GOP {w}x{h}", run, need=ALL_KERNELS,
             expected={"quantize_b_vec": 11 + 2 * 10 + 7 * 9,
                       "avl_quantize_b": 11 + 2 * 10,
@@ -1579,17 +1372,15 @@ def phase_lowdelay(dev, tmp, frames) -> dict:
         TpuLowDelayEncoder, encode_tpu_lowdelay_ivf)
 
     path = os.path.join(tmp, "lowdelay.ivf")
-    per_frame = []
 
     def run():
-        with instances_of(TpuLowDelayEncoder, "encode_frame",
-                          per_frame) as encs:
+        with instances_of(TpuLowDelayEncoder, "encode_frame") as encs:
             encode_tpu_lowdelay_ivf(path, frames, W, H, qindex=60,
                                     device=dev)
         return encs[0]
 
     n_p = len(frames) - 1
-    enc, secs, launches = timed_path(
+    enc, launches = checked_path(
         f"low delay {W}x{H}, {len(frames)} frames", run, need=ALL_KERNELS,
         expected={"ssd_surface": 2 * n_p, "avl_block_ssd_at": n_p,
                   "avl_gather_windows": 0,
@@ -1600,9 +1391,7 @@ def phase_lowdelay(dev, tmp, frames) -> dict:
     shown, state = decode_payloads(read_payloads(path))
     n = require_slots_equal("low delay", enc.slots, state)
     log(f"  decode: {len(shown)} frames; {n} slot planes equal the encoder "
-        f"recon; KEY {per_frame[0]:.3f} s, P frames "
-        f"{[round(x, 3) for x in per_frame[1:]]} s each (device encode, "
-        "host deblock and emit)")
+        "recon")
     return {"lowdelay": launches}
 
 
@@ -1612,19 +1401,12 @@ def phase_realtime(dev, tmp, frames) -> dict:
     from aom_av1_lavish_torch.encoder.nonrd import encode_realtime_tpu_ivf
     from aom_av1_lavish_torch.ops.inter import DeviceRtEncoder
 
-    from aom_av1_lavish_torch.encoder.tpu_intra import TorchAllIntraEncoder
-
     path = os.path.join(tmp, "realtime.ivf")
     n_p = len(frames) - 1
-    key_secs = []
-
-    def run():
-        with instances_of(TorchAllIntraEncoder, "encode_frame", key_secs):
-            encode_realtime_tpu_ivf(path, frames, W, H, qindex=90,
-                                    device=dev)
-
-    _, secs, launches = timed_path(
-        f"realtime {W}x{H}, {len(frames)} frames", run,
+    _, launches = checked_path(
+        f"realtime {W}x{H}, {len(frames)} frames",
+        lambda: encode_realtime_tpu_ivf(path, frames, W, H, qindex=90,
+                                        device=dev),
         need=ALL_KERNELS,
         expected={"ssd_surface": 2 * n_p, "avl_block_ssd_at": n_p,
                   "avl_gather_windows": 0,
@@ -1637,17 +1419,12 @@ def phase_realtime(dev, tmp, frames) -> dict:
         raise AssertionError(f"decoded {len(shown)} frames")
     rt = DeviceRtEncoder(90, device=dev)
     rt.reset_ref(shown[0][:3])
-    t0 = time.perf_counter()
     for f, dec in zip(frames[1:], shown[1:]):
         rt.encode_frame(f)
         require_planes_equal("realtime P frame", rt.fetch_recon(H, W),
                              dec[:3])
-    step = (time.perf_counter() - t0) / n_p
     log(f"  decode: {len(shown)} frames, every P frame equals the device "
-        f"recon; KEY {key_secs[0]:.3f} s, then "
-        f"{(secs - key_secs[0]) / n_p:.3f} s per P frame in the stream "
-        f"(step, copy and emit, one frame in flight); {step:.3f} s per P "
-        "frame stepped alone with its recon fetched")
+        "recon")
     return {"realtime": launches}
 
 
@@ -1666,7 +1443,7 @@ def phase_short_groups(dev) -> dict:
             enc = TorchGopEncoder(352, 288, device=dev, **kw)
             return enc, enc.encode_sequence(frames)
 
-        (enc, payloads), _, launches = timed_path(
+        (enc, payloads), launches = checked_path(
             f"short groups ({name}) 352x288", run, need=ALL_KERNELS,
             expected={"avl_block_ssd_at": N_FRAMES - 1,
                       "avl_gather_windows": 0,
@@ -1687,7 +1464,7 @@ def phase_lossless(dev, tmp, frames) -> dict:
     from aom_av1_lavish_torch.encoder import encode_lossless_ivf
 
     path = os.path.join(tmp, "lossless.ivf")
-    _, secs, launches = timed_path(
+    _, launches = checked_path(
         f"lossless {W}x{H}, {len(frames)} frames",
         lambda: encode_lossless_ivf(path, frames, W, H, device=dev),
         expected={k: 0 for k in ALL_KERNELS})
@@ -1697,7 +1474,6 @@ def phase_lossless(dev, tmp, frames) -> dict:
     for f, dec in zip(frames, shown):
         require_planes_equal("lossless", dec[:3], f)
     log(f"  decode: {len(shown)} frames equal the source; "
-        f"{secs / len(frames):.3f} s per frame, "
         f"{os.path.getsize(path)} bytes")
     return {"lossless": launches}
 
@@ -1709,7 +1485,7 @@ def phase_twopass(dev, tmp, frames) -> dict:
     from aom_av1_lavish_torch.encoder.gop import (GopEncoder,
                                                   encode_twopass_ivf)
 
-    stats, secs, fp_launches = timed_path(
+    stats, fp_launches = checked_path(
         f"first pass {W}x{H}, {len(frames)} frames",
         lambda: first_pass(frames, device=dev),
         expected={"avl_ssd_surface_plane": len(frames),
@@ -1730,7 +1506,7 @@ def phase_twopass(dev, tmp, frames) -> dict:
                                **KW_DEFAULT)
         return encs[0]
 
-    enc, secs2, launches = timed_path(
+    enc, launches = checked_path(
         f"two-pass {W}x{H}, {len(frames)} frames", run, need=ALL_KERNELS,
         expected={"avl_wave_encode": K4_KEY, "avl_quantize_b": 0,
                   "avl_code_residual": 63})
@@ -1744,13 +1520,13 @@ def phase_twopass(dev, tmp, frames) -> dict:
         raise AssertionError(f"decoded {len(shown)} frames")
     n = require_slots_equal("two-pass", enc.slots, state)
     log(f"  decode: {len(shown)} frames; {n} slot planes equal the encoder "
-        f"recon; first pass {secs / len(frames):.4f} s per frame")
+        "recon")
     return {"first_pass": fp_launches, "twopass": launches}
 
 
 def phase_intra_batch(dev, tmp, frames) -> dict:
-    """encode_tpu_ivf at 1920x1088: 4 frames in one batch beside 1 frame
-    through the same entry, in turns (1, 4, 4, 1)."""
+    """encode_tpu_ivf at 1920x1088: 1 frame, then 4 frames in one batch
+    through the same entry, each one K4 launch a wave; the batch decoded."""
     import numpy as np
 
     from aom_av1_lavish_torch.encoder.tpu_intra import (TorchAllIntraEncoder,
@@ -1764,18 +1540,17 @@ def phase_intra_batch(dev, tmp, frames) -> dict:
                 encode_tpu_ivf(path, frames[:n], W, H, qindex=QINDEX,
                                device=dev)
             return encs
-        return timed_path(f"batched all-intra {W}x{H}, {n} frame(s)", go,
-                          expected={"quantize_b_vec": K4_KEY,
-                                    "avl_wave_encode": K4_KEY,
-                                    "avl_quantize_b": 0,
-                                    "avl_code_residual": 0,
-                                    "gather_windows": 0, "ssd_surface": 0,
-                                    "convolve_8tap": 0})
+        return checked_path(f"batched all-intra {W}x{H}, {n} frame(s)", go,
+                            expected={"quantize_b_vec": K4_KEY,
+                                      "avl_wave_encode": K4_KEY,
+                                      "avl_quantize_b": 0,
+                                      "avl_code_residual": 0,
+                                      "gather_windows": 0, "ssd_surface": 0,
+                                      "convolve_8tap": 0})
 
     n = len(frames)
-    _, one_a, _ = run(1)
-    _, many_a, _ = run(n)
-    encs, many_b, launches = run(n)
+    run(1)
+    encs, launches = run(n)
     shown, _ = decode_payloads(read_payloads(path))
     if len(shown) != n or len(encs) != n:
         raise AssertionError(f"decoded {len(shown)} frames of {len(encs)}")
@@ -1784,11 +1559,7 @@ def phase_intra_batch(dev, tmp, frames) -> dict:
         mse = np.mean((np.asarray(dec[0], np.float64) - f[0]) ** 2)
         if not 10 * np.log10(255.0 ** 2 / max(mse, 1e-9)) > 30.0:
             raise AssertionError("batched all-intra: luma PSNR under 30 dB")
-    _, one_b, _ = run(1)
-    one, many = (one_a + one_b) / 2, (many_a + many_b) / 2
-    log(f"  decode: {n} frames equal the encoders' recon; {n} frames in one "
-        f"batch {many:.3f} s ({many_a:.3f}, {many_b:.3f}) beside {n} x one "
-        f"frame {n * one:.3f} s ({one_a:.3f}, {one_b:.3f} each)")
+    log(f"  decode: {n} frames equal the encoders' recon")
     return {"intra_batch": launches}
 
 
@@ -1868,7 +1639,7 @@ def phase_fpmt(dev, frames, slice_launches):
             enc = GopEncoder(W, H, device=dev, mesh=mesh, **KW_FPMT)
             return enc, enc.encode_sequence(frames)
 
-    (enc, payloads), _, launches = timed_path(
+    (enc, payloads), launches = checked_path(
         f"FPMT GOP {W}x{H}, {N_FRAMES} frames", run, need=ALL_KERNELS)
     require_group_launches("FPMT", groups)
     want = dict(slice_launches)
@@ -2007,7 +1778,7 @@ def phase_cli(dev, tmp, frames, launches_fpmt, payloads, shown) -> dict:
         if rc != 0:
             raise AssertionError(f"apps.enc exited with {rc}")
 
-    _, secs, launches = timed_path(
+    _, launches = checked_path(
         f"CLI apps.enc --tpu --fp-mt 1 {W}x{H}, {N_FRAMES} frames", run,
         need=ALL_KERNELS, expected=launches_fpmt)
     require_group_launches("CLI", groups)
@@ -2037,7 +1808,7 @@ def phase_sharded_lossless(dev, frames) -> dict:
     from aom_av1_lavish_torch.parallel.sharding import (
         ShardedLosslessEncoder, make_mesh)
 
-    payloads, secs, launches = timed_path(
+    payloads, launches = checked_path(
         f"sharded lossless {W}x{H}, {len(frames)} frames, mesh (2, 2)",
         lambda: ShardedLosslessEncoder(W, H, make_mesh(2, 2, device=dev))
         .encode_frames(frames), expected={k: 0 for k in ALL_KERNELS})
@@ -2054,8 +1825,8 @@ def phase_sharded_lossless(dev, frames) -> dict:
         raise AssertionError(f"decoded {len(shown)} frames")
     for f, d in zip(frames, shown):
         require_planes_equal("sharded lossless", d[:3], f)
-    log(f"  equal to LosslessEncoder(tile_cols_log2=1); decoded to the "
-        f"source; {secs / len(frames):.3f} s per frame")
+    log("  equal to LosslessEncoder(tile_cols_log2=1); decoded to the "
+        "source")
     return {"sharded_lossless": launches}
 
 
@@ -2294,17 +2065,8 @@ def phase_card_vs_cpu(dev, tmp) -> None:
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--warm", type=int, default=0, metavar="N",
-                    help="run each configuration's slice N more times and "
-                    "print medians")
-    ap.add_argument("--profile", action="store_true",
-                    help="run one more default-configuration slice, and one "
-                    "with frame-parallel groups, under torch.profiler")
-    ap.add_argument("--before", nargs="+", default=[], metavar="DIR",
-                    help="checkouts of other commits: time each one's K2 "
-                    "plane kernel beside this one's at K2's headline shapes")
-    opts = ap.parse_args()
+    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]) \
+        .parse_args()
 
     import torch
     if not torch.cuda.is_available():
@@ -2339,28 +2101,17 @@ def main() -> int:
 
     recs = phase_kernels(dev)
     lap("kernel cases")
-    phase_before_after(dev, opts.before)
-    lap("before/after pairs")
     frames = make_frames(N_FRAMES, W, H)
     phase_programs(dev, frames)
     lap("P-frame programs")
     launches8 = phase_slice(dev, frames, "cpu_used 8", KW_CPU8)
     launches = phase_slice(dev, frames, "default", KW_DEFAULT)
     lap("slices")
-    phase_bench(dev)
-    lap("bench_torch main cell")
-    if opts.warm:
-        phase_warm(dev, frames, "cpu_used 8", KW_CPU8, opts.warm)
-        phase_warm(dev, frames, "default", KW_DEFAULT, opts.warm)
-        phase_warm(dev, frames, "FPMT", KW_FPMT, opts.warm)
-    if opts.profile:
-        phase_profile(dev, frames, "default", KW_DEFAULT)
-        phase_profile(dev, frames, "FPMT", KW_FPMT)
     phase_decode(dev, make_frames(N_FRAMES, 352, 288), 352, 288,
                  "cpu_used 8", KW_CPU8)
     phase_decode(dev, make_frames(N_FRAMES, 768, 576), 768, 576, "default",
                  KW_DEFAULT)
-    lap("warm runs, profile and decode checks")
+    lap("decode checks")
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     by_path = {}

@@ -1,8 +1,8 @@
 """The port stands on its own: aom_av1_lavish_torch, chip_smoke.py and the
-port's benchmark (bench_torch.py, bench_full_torch.py) import neither jax
-nor aom_av1_lavish_tpu, run with both blocked, default
-to the card, and keep host-module copies that still equal the JAX
-package's.  Comparisons are exact (tables and bytes)."""
+files of benchmark/ that import the port import neither jax nor
+aom_av1_lavish_tpu, run with both blocked, default to the card, and keep
+host-module copies that still equal the JAX package's.  Comparisons are
+exact (tables and bytes)."""
 
 import ast
 import difflib
@@ -23,9 +23,18 @@ KW = dict(qindex=120, gf_length=8, use_tpu=True, enable_cdef=False,
           cpu_used=8)
 
 
+#: the files of benchmark/ that import the port
+BENCH_PORT = ["harness.py", "drivers/gop_stream.py", "drivers/gop_twopass.py",
+              "drivers/live_paced.py", "metrics/gop.fetch_pinned_share.py",
+              "metrics/gop.fetch_mb_per_frame.py",
+              "metrics/twopass.recode_ms_per_frame.py",
+              "metrics/twopass.recode_attempts_per_anchor.py",
+              "metrics/live.rows_waited_share.py"]
+
+
 def _port_sources():
-    out = [os.path.join(ROOT, f) for f in ("chip_smoke.py", "bench_torch.py",
-                                            "bench_full_torch.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out += [os.path.join(ROOT, "benchmark", f) for f in BENCH_PORT]
     for d, _, files in os.walk(PORT):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(os.path.relpath(p, ROOT) for p in out)
@@ -104,29 +113,46 @@ def test_encode_and_decode_with_jax_and_the_jax_package_blocked(tmp_path):
 
 def test_benchmark_runs_with_jax_and_the_jax_package_blocked(tmp_path):
     """A fresh interpreter in which importing jax or aom_av1_lavish_tpu
-    fails imports both benchmark scripts and runs the main cell of
-    bench_torch.py at 96x64 at cpu_used 8 on the CPU (a cold run and one
-    warm run, the stream decoded): no module of either name is loaded."""
+    fails imports the benchmark's harness, its three drivers and its
+    reference's comparison, and runs one cell through the harness on the
+    CPU at 96x64 (a copy of benchmark/ cut to that size): the result is
+    correct, and no module of either name is loaded."""
+    small_dir = os.path.join(ROOT, "benchmark", "tests")
     code = (
-        "import dataclasses, sys\n"
+        "import sys, time\n"
         "sys.modules['jax'] = sys.modules['aom_av1_lavish_tpu'] = None\n"
-        f"sys.path.insert(0, {ROOT!r})\n"
+        f"sys.path[:0] = [{ROOT!r}, {small_dir!r}]\n"
         "import torch\n"
         "torch.set_num_threads(1)\n"
-        "import bench_full_torch\n"
-        "import bench_torch as B\n"
-        "cell = dataclasses.replace(B.CELLS[B.MAIN], w=96, h=64,\n"
-        "                           kw=B.KW_CPU8, warm=1)\n"
-        "rec = B.run_cell(cell, device='cpu')\n"
-        "assert rec['decoded_frames'] == 8, rec\n"
+        "from benchmark import harness\n"
+        "from benchmark.reference import compare\n"
+        "from small import small_bench\n"
+        "for d in ('gop_stream', 'gop_twopass', 'live_paced'):\n"
+        "    harness.load_plugin('drivers', d)\n"
+        "bench = small_bench('small')\n"
+        "result, _, _ = harness.run_cell('rt_live.call_1080p30', 7, 0.5,\n"
+        "                                False, time.perf_counter(),\n"
+        "                                device='cpu', bench=bench)\n"
+        "assert result['correct'] and result['failed'] == 0, result\n"
         "loaded = [m for m, v in sys.modules.items() if v is not None\n"
         "          and m.split('.')[0] in ('jax', 'aom_av1_lavish_tpu')]\n"
         "assert not loaded, loaded\n"
-        "print('bytes', rec['bytes'])\n")
+        "print('p95', result['metrics']['frame_latency_p95_ms'])\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "bytes" in proc.stdout
+    assert "p95" in proc.stdout
+
+
+def test_chip_smoke_exits_without_a_card():
+    """chip_smoke.py with no CUDA device visible fails at once, says why on
+    standard error, and prints no "ok" line."""
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert '"ok"' not in proc.stdout
 
 
 def _same(a, b):
